@@ -7,9 +7,10 @@ imports neither it nor JAX. Module names mirror ``nbodyax``:
 - ``config``   — SimConfig and the nbodyConfig.txt parser.
 - ``rng``      — the bit-exact reference scene generator.
 - ``state``    — SimState tensors; ``scenes`` — scene constructors.
-- ``physics``  — the torch oracle, the CUDA all-pairs kernel, collisions,
-  the step.
+- ``physics``  — the torch oracle, the CUDA all-pairs kernel and its
+  backward kernel, collisions, the step (euler, leapfrog, yoshida4).
 - ``backends`` — which all-pairs engine a config selects.
+- ``autodiff`` — differentiable rollouts (``rollout``, ``make_loss``).
 - ``render``   — rasterizer and P5 writer.
 - ``metrics``  — conservation scalars, step meter, JSONL logging.
 - ``driver`` / ``cli`` — the end-to-end run.
@@ -28,6 +29,8 @@ _EXPORTS = {
     "make_step": "nbodyax_torch.physics.step",
     "PhysicsParams": "nbodyax_torch.physics.step",
     "run_simulation": "nbodyax_torch.driver",
+    "rollout": "nbodyax_torch.autodiff",
+    "make_loss": "nbodyax_torch.autodiff",
 }
 
 __all__ = sorted(_EXPORTS)

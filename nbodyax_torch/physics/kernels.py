@@ -19,6 +19,15 @@ them. The kernel is 2-D only.
 ``tile_accumulators_raw`` launches the kernel for CUDA tensors and runs
 ``tile_accumulators_raw_reference`` for CPU tensors. ``launches`` counts
 kernel launches, so a run can show it went through the kernel.
+
+Reverse mode: ``tile_accumulators_raw`` is a ``torch.autograd.Function``
+(the counterpart of the ``jax.custom_vjp`` of ``nbodyax``'s kernel). Its
+backward is the analytic VJP of ``physics/kernels_bwd.py``: the backward
+kernel on a CUDA tensor, its plain version on a CPU tensor. Neither forward
+engine is differentiated itself: the kernel writes through ``ctypes``,
+which autograd cannot see, and the plain forward's ungated ``rsqrt`` of
+self pairs and its ``m_j = 0`` shortcut for dead bodies give non-finite or
+non-zero derivatives where the oracle's are finite or zero.
 """
 
 from __future__ import annotations
@@ -64,6 +73,13 @@ def _float32(x: float) -> float:
     return float(np.float32(x))
 
 
+def _eps2(eps: float) -> float:
+    """The float32 eps, squared in float32: the forward and the backward
+    square the same value."""
+    eps32 = np.float32(eps)
+    return float(eps32 * eps32)
+
+
 def _check_inputs(feats_i, feats_j, mode):
     if mode not in MODES:
         raise ValueError(f"unknown collision mode {mode!r}")
@@ -86,15 +102,56 @@ def tile_accumulators_raw(feats_i: torch.Tensor, feats_j: torch.Tensor,
     returned in momentum mode only.
 
     A CUDA tensor goes to the hand-written kernel (built at first use); a
-    CPU tensor goes to ``tile_accumulators_raw_reference``.
+    CPU tensor goes to ``tile_accumulators_raw_reference``. Differentiable
+    with respect to both feature operands (see the module docstring).
     """
     _check_inputs(feats_i, feats_j, mode)
-    if feats_i.device.type == "cpu":
-        return tile_accumulators_raw_reference(
-            feats_i, feats_j, i_offset, j_offset, mode=mode, eps=eps,
-            growth_rate=growth_rate)
-    if feats_i.device.type != "cuda":
+    if feats_i.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no pair kernel for device {feats_i.device}")
+    return _PairRaw.apply(feats_i, feats_j, int(i_offset), int(j_offset),
+                          mode, float(eps), float(growth_rate))
+
+
+tile_accumulators_raw.launches = 0
+
+
+class _PairRaw(torch.autograd.Function):
+    """The forward engines with the analytic backward as their VJP. Saves
+    only the inputs and the momentum parent: the backward recomputes every
+    pair quantity. The backward is not itself differentiable, so a second
+    derivative raises."""
+
+    @staticmethod
+    def forward(ctx, feats_i, feats_j, i_offset, j_offset, mode, eps,
+                growth_rate):
+        if feats_i.device.type == "cpu":
+            raw, parent = tile_accumulators_raw_reference(
+                feats_i, feats_j, i_offset, j_offset, mode=mode, eps=eps,
+                growth_rate=growth_rate)
+        else:
+            raw, parent = _launch(feats_i, feats_j, i_offset, j_offset,
+                                  mode=mode, eps=eps, growth_rate=growth_rate)
+        ctx.save_for_backward(feats_i, feats_j, parent)
+        ctx.args = (i_offset, j_offset, mode, eps, growth_rate)
+        if parent is not None:
+            ctx.mark_non_differentiable(parent)
+        return raw, parent
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g_raw, _g_parent):
+        from nbodyax_torch.physics.kernels_bwd import raw_backward
+        feats_i, feats_j, parent = ctx.saved_tensors
+        i_offset, j_offset, mode, eps, growth_rate = ctx.args
+        d_fi, d_fj = raw_backward(feats_i, feats_j, i_offset, j_offset,
+                                  parent, g_raw, mode=mode, eps=eps,
+                                  growth_rate=growth_rate)
+        return d_fi, d_fj, None, None, None, None, None
+
+
+def _launch(feats_i, feats_j, i_offset: int, j_offset: int, *, mode: str,
+            eps: float, growth_rate: float):
+    """Launch the CUDA kernel on CUDA tensors; counts the launch."""
     from nbodyax_torch.physics._build import load_library
     lib = load_library()
     fi, fj = feats_i.contiguous(), feats_j.contiguous()
@@ -106,21 +163,17 @@ def tile_accumulators_raw(feats_i: torch.Tensor, feats_j: torch.Tensor,
     raw = torch.empty((ni, NUM_CH), dtype=torch.float32, device=fi.device)
     parent = (torch.empty((ni,), dtype=torch.int32, device=fi.device)
               if mode == "momentum" else None)
-    eps32 = np.float32(eps)
     with torch.cuda.device(fi.device):
         stream = torch.cuda.current_stream(fi.device).cuda_stream
         err = lib.nbodyax_pair_accumulators(
             fi.data_ptr(), ni, fj.data_ptr(), nj, i_offset, j_offset,
-            MODES.index(mode), float(eps32 * eps32), _float32(growth_rate),
+            MODES.index(mode), _eps2(eps), _float32(growth_rate),
             raw.data_ptr(),
             parent.data_ptr() if parent is not None else None, stream)
     if err != 0:
         raise RuntimeError(f"pair kernel launch failed: CUDA error {err}")
     tile_accumulators_raw.launches += 1
     return raw, parent
-
-
-tile_accumulators_raw.launches = 0
 
 
 def tile_accumulators_raw_reference(feats_i: torch.Tensor,
@@ -136,8 +189,7 @@ def tile_accumulators_raw_reference(feats_i: torch.Tensor,
     ni, nj = feats_i.shape[0], feats_j.shape[0]
     if chunk is None:
         chunk = max(1, min(ni, (1 << 22) // max(nj, 1)))
-    eps32 = np.float32(eps)
-    eps2 = float(eps32 * eps32)
+    eps2 = _eps2(eps)
     growth = _float32(growth_rate)
     pj, vj = feats_j[:, 0:2], feats_j[:, 2:4]
     mj, rj = feats_j[None, :, 4], feats_j[None, :, 5]

@@ -1,0 +1,229 @@
+"""Analytic backward pass (VJP) of the fused all-pairs kernel.
+
+Counterpart of ``nbodyax/physics/kernels_bwd.py``. The TPU kernel there
+(``_bwd_kernel``) becomes the hand-written CUDA kernel in
+``nbodyax_torch/csrc/pair_bwd_kernel.cu``; ``physics/kernels.py`` pairs it
+with the forward kernel in a ``torch.autograd.Function``.
+
+Gradient semantics are those of autograd through the torch oracle
+(``physics/pairwise.py``), which is what the JAX package pins its own
+backward kernel to:
+
+- overlap tests, merge winners, death marks and boundary flips are events:
+  their masks are constants, and gradients flow only through the selected
+  branch;
+- every pair is gated on ``m_j > 0`` and not-self by global id, even where
+  the forward relies on ``m_j = 0`` to zero the value: a zero value still
+  has a nonzero derivative with respect to ``m_j``;
+- the force gate is the forward's: overlapping pairs are left out except in
+  elastic mode, and ``d2 + eps2 > 0``.
+
+Per pair, with u = p_j - p_i, d2e = |u|^2 + eps2, s = d2e^{-3/2}, the force
+cotangent g of body i and the gate c:
+
+  dL/dp_i += c m_j (3 s (g.u)/d2e u - s g)       dL/dp_j = -(that)
+  dL/dm_j += c s (g.u)
+
+and for the elastic impulse sum_j a m_j q u, q = vdotp / ((m_i + m_j) d2),
+vdotp = (v_j - v_i).u, gate a (overlapping and approaching), cotangent h:
+
+  dL/dv_j += a m_j (h.u) / ((m_i + m_j) d2) u                (v_i: negated)
+  dL/dp_j += a m_j [(h.u) (dv - 2 vdotp u / d2) / ((m_i + m_j) d2) + q h]
+                                                             (p_i: negated)
+  dL/dm_j += a (h.u) q m_i / (m_i + m_j)
+  dL/dm_i -= a (h.u) q m_j / (m_i + m_j)
+
+In reference mode the gained mass and radius of body i flow to the j body
+of each merge: dL/dm_j += g_gm_i, dL/dr_j += growth g_gr_i. The died count
+and the momentum parent carry no gradient. The momentum best-mass
+cotangent goes to the mass of the saved parent, outside the kernel.
+
+``raw_backward`` launches the kernel for CUDA tensors (twice: once with the
+i bodies as output rows, once with the j bodies) and runs
+``raw_backward_reference`` for CPU tensors. ``raw_backward.launches``
+counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from nbodyax_torch.physics.kernels import (_I32_MAX, MODES, _check_inputs,
+                                           _eps2, _float32)
+
+__all__ = ["raw_backward", "raw_backward_reference"]
+
+_SIDES = ("i", "j")
+
+
+def _check(feats_i, feats_j, g_raw, mode):
+    _check_inputs(feats_i, feats_j, mode)
+    if (g_raw.dtype != torch.float32 or g_raw.shape != feats_i.shape
+            or g_raw.device != feats_i.device):
+        raise ValueError(f"g_raw must be f32{tuple(feats_i.shape)} on "
+                         f"{feats_i.device}, got {g_raw.dtype} "
+                         f"{tuple(g_raw.shape)} on {g_raw.device}")
+
+
+def _route_best_mass(d_fj, parent, g_raw, j_offset: int) -> None:
+    """Momentum mode: d best_mass_i / d m_parent(i) = 1. Adds the best-mass
+    cotangent onto the parent's mass feature, in place; parents that are
+    ``INT32_MAX`` (no candidate) or outside this j range are dropped, by
+    sending them to a spare slot past the end (no host sync). ``index_put_``
+    with ``accumulate`` sums by sorted index on the card, so the result
+    repeats bit for bit."""
+    nj = d_fj.shape[0]
+    tgt = parent.long() - int(j_offset)
+    keep = (parent != _I32_MAX) & (tgt >= 0) & (tgt < nj)
+    tgt = torch.where(keep, tgt, torch.full_like(tgt, nj))
+    dm = torch.zeros((nj + 1,), dtype=torch.float32, device=d_fj.device)
+    dm.index_put_((tgt,), g_raw[:, 6], accumulate=True)
+    d_fj[:, 4] += dm[:nj]
+
+
+def raw_backward_reference(feats_i: torch.Tensor, feats_j: torch.Tensor,
+                           i_offset: int, j_offset: int, parent, g_raw, *,
+                           mode: str, eps: float, growth_rate: float,
+                           chunk=None):
+    """Plain PyTorch version of the backward kernel: the per-pair formulas
+    of the module docstring as explicit tensor expressions (no autograd),
+    chunked over i so the pair temporaries stay near 2^22 elements. Each
+    i chunk's pair block feeds both sides: its rows sum into ``d_feats_i``,
+    its columns into ``d_feats_j``. Returns ``(d_feats_i f32[Ni, 8],
+    d_feats_j f32[Nj, 8])``."""
+    _check(feats_i, feats_j, g_raw, mode)
+    dev = feats_i.device
+    ni, nj = feats_i.shape[0], feats_j.shape[0]
+    if chunk is None:
+        chunk = max(1, min(ni, (1 << 22) // max(nj, 1)))
+    eps2 = _eps2(eps)
+    growth = _float32(growth_rate)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    one = torch.ones((), dtype=torch.float32, device=dev)
+    pj, vj = feats_j[:, 0:2], feats_j[:, 2:4]
+    mj, rj = feats_j[None, :, 4], feats_j[None, :, 5]
+    gj = (int(j_offset)
+          + torch.arange(nj, dtype=torch.int32, device=dev))[None, :]
+    aj = mj > 0
+    d_fi = torch.zeros_like(feats_i)
+    d_fj = torch.zeros_like(feats_j)
+    for s in range(0, ni, chunk):
+        f, g = feats_i[s:s + chunk], g_raw[s:s + chunk]
+        c_rows = f.shape[0]
+        mi, ri = f[:, 4:5], f[:, 5:6]
+        gi = (int(i_offset) + s
+              + torch.arange(c_rows, dtype=torch.int32, device=dev))[:, None]
+        ux = pj[None, :, 0] - f[:, None, 0]              # u = p_j - p_i
+        uy = pj[None, :, 1] - f[:, None, 1]
+        d2 = ux * ux + uy * uy
+        rsum = ri + rj
+        overlap = d2 <= rsum * rsum
+        d2e = d2 + eps2
+        live = aj & (gi != gj)
+        if mode == "elastic":
+            c = live & (d2e > 0)
+        else:
+            c = live & ~overlap & (d2e > 0)
+        inv = torch.rsqrt(torch.where(c, d2e, one))
+        sc = inv * inv * inv
+        gx, gy = g[:, 0:1], g[:, 1:2]
+        gdotu = gx * ux + gy * uy
+        t = 3.0 * (inv * inv) * sc * gdotu
+        # side i: c m_j (t u - s g); side j is its negation
+        px = torch.where(c, mj * (t * ux - sc * gx), zero)
+        py = torch.where(c, mj * (t * uy - sc * gy), zero)
+        out_i, out_j = d_fi[s:s + c_rows], d_fj
+        out_i[:, 0] += px.sum(1)
+        out_i[:, 1] += py.sum(1)
+        out_j[:, 0] -= px.sum(0)
+        out_j[:, 1] -= py.sum(0)
+        out_j[:, 4] += torch.where(c, sc * gdotu, zero).sum(0)
+        if mode == "reference":
+            merge = overlap & live & (mi >= mj)
+            out_j[:, 4] += torch.where(merge, g[:, 2:3], zero).sum(0)
+            out_j[:, 5] += torch.where(merge, growth * g[:, 3:4],
+                                       zero).sum(0)
+        elif mode == "elastic":
+            dvx = vj[None, :, 0] - f[:, None, 2]          # v_j - v_i
+            dvy = vj[None, :, 1] - f[:, None, 3]
+            vdotp = dvx * ux + dvy * uy
+            a = overlap & live & (vdotp < 0) & (d2 > 0)
+            invd2 = 1.0 / torch.where(a, d2, one)
+            minv = 1.0 / torch.where(a, mi + mj, one)
+            recip = minv * invd2
+            q = vdotp * recip
+            hx, hy = g[:, 2:3], g[:, 3:4]
+            hdotu = hx * ux + hy * uy
+            gr = hdotu * recip
+            ex = torch.where(a, mj * (gr * (dvx - (2.0 * vdotp) * ux * invd2)
+                                      + q * hx), zero)
+            ey = torch.where(a, mj * (gr * (dvy - (2.0 * vdotp) * uy * invd2)
+                                      + q * hy), zero)
+            wx = torch.where(a, mj * gr * ux, zero)
+            wy = torch.where(a, mj * gr * uy, zero)
+            hq = torch.where(a, hdotu * q * minv, zero)
+            out_i[:, 0] -= ex.sum(1)
+            out_i[:, 1] -= ey.sum(1)
+            out_i[:, 2] -= wx.sum(1)
+            out_i[:, 3] -= wy.sum(1)
+            out_i[:, 4] -= (hq * mj).sum(1)
+            out_j[:, 0] += ex.sum(0)
+            out_j[:, 1] += ey.sum(0)
+            out_j[:, 2] += wx.sum(0)
+            out_j[:, 3] += wy.sum(0)
+            out_j[:, 4] += (hq * mi).sum(0)
+    if mode == "momentum" and parent is not None:
+        _route_best_mass(d_fj, parent, g_raw, j_offset)
+    return d_fi, d_fj
+
+
+def raw_backward(feats_i: torch.Tensor, feats_j: torch.Tensor, i_offset: int,
+                 j_offset: int, parent, g_raw: torch.Tensor, *, mode: str,
+                 eps: float, growth_rate: float):
+    """Full VJP of ``tile_accumulators_raw`` with respect to both feature
+    operands, in the port's row layout.
+
+    ``g_raw`` f32[Ni, 8] is the cotangent of the raw channels; ``parent``
+    the forward's momentum-mode i32[Ni] (None otherwise). Returns
+    ``(d_feats_i f32[Ni, 8], d_feats_j f32[Nj, 8])``.
+
+    A CUDA tensor goes to the hand-written kernel, one launch for each
+    side; a CPU tensor goes to ``raw_backward_reference``.
+    """
+    _check(feats_i, feats_j, g_raw, mode)
+    if feats_i.device.type == "cpu":
+        return raw_backward_reference(
+            feats_i, feats_j, i_offset, j_offset, parent, g_raw, mode=mode,
+            eps=eps, growth_rate=growth_rate)
+    if feats_i.device.type != "cuda":
+        raise ValueError(f"no backward kernel for device {feats_i.device}")
+    from nbodyax_torch.physics._build import load_library
+    lib = load_library()
+    fi, fj, g = feats_i.contiguous(), feats_j.contiguous(), g_raw.contiguous()
+    ni, nj = fi.shape[0], fj.shape[0]
+    i_offset, j_offset = int(i_offset), int(j_offset)
+    if min(i_offset, j_offset) < 0 or max(i_offset + ni,
+                                          j_offset + nj) > _I32_MAX:
+        raise ValueError("body ids must be non-negative and fit in int32")
+    d_fi = torch.empty_like(fi)
+    d_fj = torch.empty_like(fj)
+    with torch.cuda.device(fi.device):
+        stream = torch.cuda.current_stream(fi.device).cuda_stream
+        for side, (rows, nr, r_off, cols, nc, c_off, out) in enumerate((
+                (fi, ni, i_offset, fj, nj, j_offset, d_fi),
+                (fj, nj, j_offset, fi, ni, i_offset, d_fj))):
+            err = lib.nbodyax_pair_backward(
+                rows.data_ptr(), nr, cols.data_ptr(), nc, r_off, c_off,
+                g.data_ptr(), MODES.index(mode), side, _eps2(eps),
+                _float32(growth_rate), out.data_ptr(), stream)
+            if err != 0:
+                raise RuntimeError(f"pair backward kernel (side "
+                                   f"{_SIDES[side]}) launch failed: CUDA "
+                                   f"error {err}")
+            raw_backward.launches += 1
+    if mode == "momentum" and parent is not None:
+        _route_best_mass(d_fj, parent, g, j_offset)
+    return d_fi, d_fj
+
+
+raw_backward.launches = 0

@@ -1,8 +1,9 @@
 """nbodyax_torch command line, end to end on the CPU.
 
 The port's CLI (``--device cpu``) writes the same frames, byte for byte,
-as ``nbodyax.cli`` on the same config; the port imports no JAX; and the
-config values it does not run yet are refused.
+as ``nbodyax.cli`` on the same config, and runs leapfrog and yoshida4 to
+nbodyax's final state; the port imports no JAX; and the config values it
+does not run yet are refused.
 """
 
 import json
@@ -16,8 +17,10 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from nbodyax import cli as jcli  # noqa: E402
+from nbodyax.config import parse_config_file as jax_parse  # noqa: E402
+from nbodyax.driver import run_simulation as jax_run  # noqa: E402
 from nbodyax_torch import cli as tcli  # noqa: E402
-from nbodyax_torch.config import SimConfig  # noqa: E402
+from nbodyax_torch.config import SimConfig, parse_config_file  # noqa: E402
 from nbodyax_torch.driver import run_simulation  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -68,9 +71,41 @@ def test_frames_byte_equal_to_jax_cli(config, tmp_path, capsys):
     assert 0 < logs[-1]["alive"] <= 64 and logs[-1]["pairs_per_sec"] > 0
 
 
+@pytest.mark.parametrize("integrator", ["leapfrog", "yoshida4"])
+def test_symplectic_integrators_run_end_to_end(config, tmp_path, capsys,
+                                               integrator):
+    """``--set integrator=...`` runs through the CLI, and the driver's
+    final state matches nbodyax's run of the same config (alive masks
+    exact; mass to rtol 1e-6; pos and vel within 2e-4 of the field, the
+    golden gates)."""
+    tdir = tmp_path / "frames"
+    assert tcli.main(["--config", str(config), "--device", "cpu",
+                      "--set", f"imagePath={tdir}",
+                      "--set", f"integrator={integrator}",
+                      "--set", f"logPath={tmp_path / 'log.jsonl'}"]) == 0
+    assert "Time taken:" in capsys.readouterr().out
+    assert sorted(os.listdir(tdir)) == ["iteration_0.ppm",
+                                        "iteration_10.ppm"]
+    jcfg, tcfg = jax_parse(str(config)), parse_config_file(str(config))
+    for cfg in (jcfg, tcfg):
+        cfg.integrator, cfg.save_images = integrator, False
+        cfg.log_path = str(tmp_path / "unused.jsonl")
+    want = jax_run(jcfg, quiet=True).state
+    got = run_simulation(tcfg, device="cpu", quiet=True).state
+    alive = np.asarray(want.mass) > 0
+    np.testing.assert_array_equal(got.mass.numpy() > 0, alive)
+    np.testing.assert_allclose(got.mass.numpy(), np.asarray(want.mass),
+                               rtol=1e-6)
+    for name in ("pos", "vel"):
+        np.testing.assert_allclose(
+            getattr(got, name).numpy()[alive],
+            np.asarray(getattr(want, name))[alive], rtol=0, atol=2e-4 * 5000)
+
+
 def test_port_imports_no_jax():
     code = ("import sys, nbodyax_torch, nbodyax_torch.cli, "
-            "nbodyax_torch.physics.kernels, nbodyax_torch.driver; "
+            "nbodyax_torch.physics.kernels, nbodyax_torch.driver, "
+            "nbodyax_torch.physics.kernels_bwd, nbodyax_torch.autodiff; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'nbodyax.')) or m == 'nbodyax']; "
             "assert not bad, bad")
@@ -98,7 +133,7 @@ def test_missing_config_errors(tmp_path, capsys):
     (dict(checkpoint_every=5), "A8"), (dict(resume_from="x.npz"), "A8"),
     (dict(compact_every=5), "A8"), (dict(energy_every=10), "A8"),
     (dict(force_model="bh"), "A10"), (dict(shards=2), "A11"),
-    (dict(dimensions=3), "A5"), (dict(integrator="leapfrog"), "A5"),
+    (dict(dimensions=3), "A5"), (dict(adaptive_dt=True), "A5"),
     (dict(scene="galaxy"), "A3"),
 ])
 def test_unported_config_values_raise(override, item, tmp_path):

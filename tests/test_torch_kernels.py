@@ -1,4 +1,5 @@
-"""The hand-written CUDA all-pairs kernel against its plain PyTorch version.
+"""The hand-written CUDA kernels against their plain PyTorch versions: the
+all-pairs forward kernel and its analytic backward kernel.
 
 These tests need a CUDA card and skip without one. The file imports neither
 JAX nor nbodyax, so on a machine with a card and no JAX it runs without the
@@ -14,6 +15,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from nbodyax_torch.physics import kernels  # noqa: E402
+from nbodyax_torch.physics import kernels_bwd  # noqa: E402
 from nbodyax_torch.physics.pairwise import combine_accumulators  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -121,3 +123,94 @@ def test_softening(cuda):
     a = kernels.decode_raw(rk, None, 0, mass, "elastic")
     b = kernels.decode_raw(rp, None, 0, mass, "elastic")
     assert_equivalent(a, b, "elastic")
+
+
+# ---------------------------------------------------------------------------
+# The backward kernel (csrc/pair_bwd_kernel.cu)
+# ---------------------------------------------------------------------------
+
+BWD_GATE = 3e-6   # of the largest component, per output (test_autodiff.py)
+
+
+def cotangent(n, seed, dev):
+    g = np.random.RandomState(seed).standard_normal((n, 8)).astype(np.float32)
+    return torch.from_numpy(g).to(dev)
+
+
+def assert_bwd_close(got, want):
+    for a, b in zip(got, want):
+        scale = max(float(b.abs().max()), 1e-30)
+        assert float((a - b).abs().max()) / scale < BWD_GATE
+
+
+def bwd_both(fi, fj, i0, j0, g, mode, eps=0.0):
+    kw = dict(mode=mode, eps=eps, growth_rate=0.1)
+    _, par = kernels.tile_accumulators_raw(fi, fj, i0, j0, **kw)
+    return (kernels_bwd.raw_backward(fi, fj, i0, j0, par, g, **kw),
+            kernels_bwd.raw_backward_reference(fi, fj, i0, j0, par, g, **kw))
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("n", [64, 300, 1000, 4099])
+def test_backward_kernel_matches_plain_version(cuda, mode, n):
+    feats, _ = random_feats(n, n, cuda)
+    got, want = bwd_both(feats, feats, 0, 0, cotangent(n, n, cuda), mode)
+    assert_bwd_close(got, want)
+
+
+@pytest.mark.parametrize("mode", ["reference", "elastic"])
+def test_backward_kernel_softened(cuda, mode):
+    feats, _ = random_feats(500, 2, cuda)
+    got, want = bwd_both(feats, feats, 0, 0, cotangent(500, 2, cuda), mode,
+                         eps=5.0)
+    assert_bwd_close(got, want)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_backward_large_offsets_and_halves(cuda, mode):
+    """An i range against two j halves at ids past 2^30: each call matches
+    the plain version, and the halves' d_feats_i sum to the full call's."""
+    n, base = 1000, (1 << 30) + 3
+    feats, _ = random_feats(n, 5, cuda)
+    i0, i1, half = 200, 700, 500
+    g = cotangent(i1 - i0, 5, cuda)
+    d_fi = 0
+    for j0, j1 in ((0, half), (half, n)):
+        got, want = bwd_both(feats[i0:i1], feats[j0:j1], base + i0,
+                             base + j0, g, mode)
+        assert_bwd_close(got, want)
+        d_fi = d_fi + got[0]
+    full, _ = bwd_both(feats[i0:i1], feats, base + i0, base, g, mode)
+    assert_bwd_close((d_fi,), (full[0],))
+
+
+def test_backward_deterministic_and_counted(cuda):
+    feats, _ = random_feats(2000, 3, cuda)
+    g = cotangent(2000, 3, cuda)
+    kw = dict(mode="elastic", eps=0.0, growth_rate=0.1)
+    before = kernels_bwd.raw_backward.launches
+    a = kernels_bwd.raw_backward(feats, feats, 0, 0, None, g, **kw)
+    b = kernels_bwd.raw_backward(feats, feats, 0, 0, None, g, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert kernels_bwd.raw_backward.launches == before + 4
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_autograd_function_on_the_card(cuda, mode):
+    """Gradients through pair_accumulators_kernel on the card (forward and
+    backward kernels) against the same loss through the plain versions on
+    the CPU."""
+    n = 700
+    feats, mass = random_feats(n, 8, cuda)
+    w = cotangent(n, 9, cuda)
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        xs = [t.detach().to(dev).requires_grad_(True) for t in
+              (feats[:, 0:2], feats[:, 2:4], mass, feats[:, 5])]
+        acc = kernels.pair_accumulators_kernel(*xs, mode=mode)
+        wd = w.to(dev)
+        out = ((acc.force * wd[:, 0:2]).sum() + (acc.dv * wd[:, 2:4]).sum()
+               + (acc.gained_mass * wd[:, 4]).sum()
+               + (acc.gained_radius * wd[:, 5]).sum())
+        grads.append([g.cpu() for g in torch.autograd.grad(out, xs)])
+    assert_bwd_close(*grads)

@@ -2,7 +2,8 @@
 
 One step of the port, on the JAX package's state carried across with
 ``from_numpy``, against ``nbodyax.physics.step.make_step`` in every
-collision and boundary mode; then the C++-oracle trajectories
+collision and boundary mode, with the euler, leapfrog and yoshida4
+integrators; then the C++-oracle trajectories
 (tests/golden/ref_*.npz) at tests/test_golden.py's gates, through both of
 the port's CPU engines.
 """
@@ -40,16 +41,19 @@ def random_arrays(n=150, seed=4, field=1000.0):
     return pos, vel, mass, radius
 
 
-def params(mode, boundary, restitution=1.0, wall_restitution=1.0):
+def params(mode, boundary, restitution=1.0, wall_restitution=1.0,
+           integrator="euler"):
     kw = dict(dt=0.1, field_width=1000.0, field_height=1000.0,
               growth_rate=0.1, collision_mode=mode, boundary_mode=boundary,
-              restitution=restitution, wall_restitution=wall_restitution)
+              restitution=restitution, wall_restitution=wall_restitution,
+              integrator=integrator)
     return jstep.PhysicsParams(**kw), tstep.PhysicsParams(**kw)
 
 
 @functools.lru_cache(maxsize=None)
-def jax_step_result(mode, boundary, restitution, wall_restitution):
-    jp, _ = params(mode, boundary, restitution, wall_restitution)
+def jax_step_result(mode, boundary, restitution, wall_restitution,
+                    integrator="euler"):
+    jp, _ = params(mode, boundary, restitution, wall_restitution, integrator)
     st = jstate.make_state(*random_arrays())
     return jstate.to_numpy(st), jstate.to_numpy(jstep.make_step(jp)(st))
 
@@ -61,8 +65,23 @@ CASES = ([(m, b, 1.0, 1.0) for m in MODES for b in BOUNDARIES]
 @pytest.mark.parametrize("engine", ["jnp", "auto"])
 @pytest.mark.parametrize("mode,boundary,rest,wall_rest", CASES)
 def test_step_matches_jax(mode, boundary, rest, wall_rest, engine):
-    before, want = jax_step_result(mode, boundary, rest, wall_rest)
-    _, tp = params(mode, boundary, rest, wall_rest)
+    assert_step_matches_jax(mode, boundary, rest, wall_rest, "euler", engine)
+
+
+@pytest.mark.parametrize("engine", ["jnp", "auto"])
+@pytest.mark.parametrize("boundary", BOUNDARIES)
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("integrator", ["leapfrog", "yoshida4"])
+def test_symplectic_step_matches_jax(integrator, mode, boundary, engine):
+    """One leapfrog (two force passes) or yoshida4 (four) step."""
+    assert_step_matches_jax(mode, boundary, 1.0, 1.0, integrator, engine)
+
+
+def assert_step_matches_jax(mode, boundary, rest, wall_rest, integrator,
+                            engine):
+    before, want = jax_step_result(mode, boundary, rest, wall_rest,
+                                   integrator)
+    _, tp = params(mode, boundary, rest, wall_rest, integrator)
     state = from_numpy(before, "cpu")
     got = to_numpy(tstep.make_step(
         tp, accum_fn=build_accum_fn(engine, tp, "cpu"))(state))
@@ -93,9 +112,10 @@ def test_state_round_trip():
 
 @pytest.mark.parametrize("field", [dict(integrator="leapfrog"),
                                    dict(integrator="yoshida4"),
-                                   dict(adaptive_dt=True)])
+                                   dict(integrator="euler")])
 def test_unported_integrators_raise(field):
-    p = tstep.PhysicsParams(**field)
+    """Adaptive dt is not ported yet, under any integrator."""
+    p = tstep.PhysicsParams(adaptive_dt=True, **field)
     with pytest.raises(NotImplementedError, match="A5"):
         tstep.make_step(p)
 
