@@ -7,7 +7,7 @@ Run from the root of a checkout, on a machine with one CUDA card:
 
 Phases, each of which exits non-zero on failure:
 
-1. print the card's name and power limit; build both CUDA kernels from
+1. print the card's name and power limit; build the four CUDA sources of
    ``nbodyax_torch/csrc`` (one ``nvcc`` a source, in parallel) and print the
    build time;
 2. compare the all-pairs kernel with its plain PyTorch version on the card,
@@ -34,7 +34,22 @@ Phases, each of which exits non-zero on failure:
 9. ``nbodyax_torch.cli`` with ``integrator=leapfrog`` for 20 steps, two
    forward launches a step;
 10. time the backward kernel against its plain version, and one gradient
-    step against one forward step, at N = 16,384.
+    step against one forward step, at N = 16,384;
+11. ``forceModel=bh``'s slot-pack kernels (B5, and B4 without moments)
+    against their plain versions on examples/million_bodies.txt's scene
+    (N = 1,048,576) and on a crowded state: rows bitwise, moments at 2e-6;
+12. the bh near-field kernel B3 against its plain version in all four
+    modes at eps 0 and 100 on a crowded N = 65,536 state, and on the 1M
+    scene, at tests/test_barneshut.py's gates;
+13. bh through B3/B5 against the exact kernel B1 at N = 65,536: far-field
+    error at ring 1, collision channels exact where every overlap is in
+    the window, and the FMM table on the card equal to the CPU's (no TF32);
+14. the bh main path: ``nbodyax_torch.cli`` on the 1M scene with
+    ``forceModel=bh`` and default bh knobs for 20 steps: the knobs it
+    picked, ``bh_overflow`` 0, B3 and B5 once a step;
+15. ``bhFar=direct bhOrder=1`` on the CLI at N = 65,536: B4 once a step;
+16. B3, B4 and B5 timed against their plain versions at N = 1M, one bh
+    step, and one step's profiler breakdown and device idle share.
 
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside
@@ -528,6 +543,399 @@ def phase_grad_over_forward(state):
           f"grad_over_forward {grad_ms / fwd_ms:.4f}")
 
 
+# ---------------------------------------------------------------------------
+# forceModel=bh: the slot-pack kernels B4/B5 and the near-field kernel B3
+# ---------------------------------------------------------------------------
+
+NEAR_GATE = 2e-5    # tests/test_barneshut.py:385, of the channel's largest
+MOM_GATE = 2e-6     # tests/test_barneshut.py:803, of max(channel scale, 1)
+
+
+def million_config(**over):
+    """examples/million_bodies.txt's scene with forceModel=bh, default bh
+    knobs, cut to 20 steps without compaction or checkpoints."""
+    from nbodyax_torch.config import SimConfig
+    kw = dict(particle_count=1 << 20, total_iterations=20,
+              field_width=1_000_000, field_height=1_000_000,
+              collision_mode="reference", save_images=False, log_every=10,
+              force_model="bh")
+    kw.update(over)
+    return SimConfig(**kw)
+
+
+def million_scene(cfg):
+    from nbodyax_torch.rng import scene_arrays
+    t0 = time.perf_counter()
+    arrays = scene_arrays(cfg.seed, cfg.particle_count, cfg.field_width,
+                          cfg.field_height, cfg.min_body_mass,
+                          cfg.max_body_mass, cfg.min_radius, cfg.max_radius)
+    print(f"scene N={cfg.particle_count} seed {cfg.seed}: "
+          f"{time.perf_counter() - t0:.1f} s (bit-exact RNG, host)")
+    return arrays
+
+
+def crowded_state(n, seed, field, dead=True):
+    """Uniform bodies over +-field, a quarter of them inside one small
+    patch at the centre, body 7 dead."""
+    rng = np.random.RandomState(seed)
+    pos = rng.uniform(-field, field, (n, 2)).astype(np.float32)
+    pos[: n // 4] = rng.uniform(-field / 3000, field / 3000, (n // 4, 2))
+    vel = rng.uniform(-3, 3, (n, 2)).astype(np.float32)
+    mass = rng.uniform(1e4, 1e17, n).astype(np.float32)
+    radius = rng.uniform(50, 200, n).astype(np.float32)
+    if dead:
+        mass[7] = 0.0
+    return pos, vel, mass, radius
+
+
+def bh_structure(arrays, dev, levels, need_vel):
+    from nbodyax_torch.physics.bh_grid import _extent, _partner_structure
+    t = tuple(torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+              for x in arrays)
+    ext = _extent(t[0], t[2] > 0)
+    return t, ext, _partner_structure(*t, ext, 1 << levels, need_vel)
+
+
+def phase_slotpack(dev, arrays_1m):
+    """B5 (and B4) against their plain versions: rows bitwise, moments at
+    2e-6 of max(per-channel scale, 1), on the N = 1M scene and on a
+    crowded state. Returns the largest absolute moment error (B5) and row
+    error (B4) seen."""
+    from nbodyax_torch.physics.slotpack_kernel import (
+        build_slot_grid_reference, finest_moments_reference, pack_slots)
+    levels, S = 8, 40
+    worst = worst_rows = 0.0
+    for name, arrays in (("scene N=1M", arrays_1m),
+                         ("crowded N=262144",
+                          crowded_state(1 << 18, 4, 1e6))):
+        (pos, _, mass, _), ext, st = bh_structure(arrays, dev, levels, False)
+        n, ncells = pos.shape[0], 1 << (2 * levels)
+        rows_k, mom_k = pack_slots(st[4], st[2], st[3], S,
+                                   moments=(pos, mass, ext, levels))
+        rows_b4 = pack_slots(st[4], st[2], st[3], S)
+        rows_p = build_slot_grid_reference(st[4], st[2], st[3], n, ncells, S)
+        mom_p = finest_moments_reference(pos, mass, ext, levels)
+        torch.cuda.synchronize()
+        occ = int((st[3] - st[2]).max())
+        check(torch.equal(rows_k, rows_p), f"B5 rows differ ({name})")
+        check(torch.equal(rows_b4, rows_p), f"B4 rows differ ({name})")
+        scale = mom_p.abs().amax(0).clamp(min=1.0)
+        err = ((mom_k - mom_p).abs().amax(0) / scale).max().item()
+        worst = max(worst, float((mom_k - mom_p).abs().max()))
+        worst_rows = max(worst_rows, float((rows_b4 - rows_p).abs().max()))
+        print(f"slot pack {name}: B4/B5 rows bitwise equal to the gather "
+              f"(max cell occupancy {occ}); B5 moments {err:.3e} of the "
+              f"per-channel scale (gate {MOM_GATE})")
+        check(err < MOM_GATE, f"B5 moments off by {err} ({name})")
+    return worst, worst_rows
+
+
+def near_compare(fslot, mode, eps2, g, ring, ci):
+    """B3 against its plain version at every live i slot: float channels
+    relative to the channel's largest value, id and flag channels exact.
+    Returns (errors, passed, largest absolute error)."""
+    from nbodyax_torch.physics.near_kernel import (slots_near,
+                                                   slots_near_reference)
+    kw = dict(mode=mode, eps2=eps2, growth=0.1, g=g, ring=ring, ci=ci)
+    k = slots_near(fslot, **kw)
+    p = slots_near_reference(fslot, **kw)
+    rest = 4 if mode == "elastic" else 2
+    live = fslot[:, :ci, rest] > 0
+    k, p = k[live], p[live]
+    floats = {"reference": [0, 1, 2, 3], "momentum": [0, 1],
+              "elastic": [0, 1, 2, 3], "none": [0, 1]}[mode]
+    exact = {"reference": [4], "momentum": [3, 4]}.get(mode, [])
+    err, ok = {}, True
+    for c in floats:
+        e = float((k[:, c] - p[:, c]).abs().max()
+                  / p[:, c].abs().max().clamp(min=1e-30))
+        err[f"ch{c}"] = e
+        ok &= e < NEAR_GATE
+    if mode == "momentum":
+        fin = torch.isfinite(p[:, 2])
+        ok &= bool(torch.equal(fin, torch.isfinite(k[:, 2])))
+        e = float((k[fin, 2] - p[fin, 2]).abs().max()
+                  / p[fin, 2].abs().max().clamp(min=1e-30)) if fin.any() \
+            else 0.0
+        err["best_mass"] = e
+        ok &= e < NEAR_GATE
+    for c in exact:
+        same = bool(torch.equal(k[:, c], p[:, c]))
+        err[f"ch{c}_exact"] = same
+        ok &= same
+    fin = torch.isfinite(p[:, :2]).all(1)
+    return err, ok, float((k[fin, :2] - p[fin, :2]).abs().max())
+
+
+def phase_near(dev, arrays_1m):
+    """B3 against its plain version in all four modes at eps 0 and 100 on
+    a crowded N = 65,536 state (dead body, grid edges, a cell far past the
+    slot budget), and on the N = 1M scene in the main path's mode. Returns
+    the largest absolute force error on the 1M scene."""
+    from nbodyax_torch.physics.barneshut import slot_cap
+    from nbodyax_torch.physics.slotpack_kernel import pack_slots
+    for mode in ("reference", "momentum", "elastic", "none"):
+        arrays = crowded_state(65536, 12, 1e5)
+        levels = 6
+        g = 1 << levels
+        _, _, st = bh_structure(arrays, dev, levels, mode == "elastic")
+        ci = slot_cap(65536, g * g)
+        fslot = pack_slots(st[4], st[2], st[3], 40)
+        for eps in (0.0, 100.0):
+            err, ok, _ = near_compare(fslot, mode, eps * eps, g, 1, ci)
+            print(f"B3 vs plain N=65536 crowded {mode} eps={eps}: "
+                  f"{json.dumps(err)}")
+            check(ok, f"B3 disagrees with its plain version: {mode} "
+                      f"eps={eps}: {err}")
+    levels = 8
+    _, _, st = bh_structure(arrays_1m, dev, levels, False)
+    fslot = pack_slots(st[4], st[2], st[3], 40)
+    err, ok, max_abs = near_compare(fslot, "reference", 0.0, 1 << levels, 1,
+                                    32)
+    print(f"B3 vs plain N=1M scene reference eps=0: {json.dumps(err)}")
+    check(ok, f"B3 disagrees with its plain version on the 1M scene: {err}")
+    return max_abs
+
+
+def rel_force_err(a, b):
+    """tests/test_barneshut.py:27-31."""
+    fa, fb = a.double(), b.double()
+    scale = fb.norm(dim=1)
+    denom = torch.maximum(scale, scale.quantile(0.5))
+    return float(((fa - fb).norm(dim=1) / denom).max())
+
+
+def phase_bh_vs_exact(dev):
+    """bh through B3/B5 against the exact all-pairs kernel B1 at
+    N = 65,536: far-field accuracy at ring 1, and collision channels exact
+    where every overlap lies inside the near window. The FMM local table
+    on the card equals the CPU's to 1e-5, which TF32 in the M2L
+    convolution (about 1e-3) would break."""
+    from nbodyax_torch.physics import barneshut as bh
+    from nbodyax_torch.physics.bh_grid import _extent
+    from nbodyax_torch.physics.fmm import _fmm_local_table
+    from nbodyax_torch.physics.kernels import pair_accumulators_kernel
+    from nbodyax_torch.physics.near_kernel import slots_near
+
+    n = 65536
+    rng = np.random.RandomState(1)
+    pos = rng.uniform(-1e5, 1e5, (n, 2)).astype(np.float32)
+    vel = rng.uniform(-3, 3, (n, 2)).astype(np.float32)
+    mass = rng.uniform(1, 100, n).astype(np.float32)
+    mass[5] = 0.0
+    radius = rng.uniform(1, 8, n).astype(np.float32)
+    t = [torch.from_numpy(x).to(dev) for x in (pos, vel, mass, radius)]
+    launches = slots_near.launches
+    got = bh.bh_accumulators(*t, eps=50.0, mode="none", ring=1, levels=6,
+                             neighbor_k=0, near="slots")
+    check(slots_near.launches > launches, "bh did not launch B3")
+    ex = pair_accumulators_kernel(*t, eps=50.0, mode="none")
+    err = rel_force_err(got.force, ex.force)
+    print(f"bh (B3 + B5, fmm, ring 1) vs exact (B1) N={n}: rel_force_err "
+          f"{err:.4e} (gate 0.05)")
+    check(err < 0.05, f"bh far field off: rel_force_err {err}")
+
+    ext = _extent(t[0], t[2] > 0)
+    loc = _fmm_local_table(t[0], t[2], ext, 6, 2, 2500.0, 2)
+    cpu = [x.cpu() for x in t]
+    loc_cpu = _fmm_local_table(cpu[0], cpu[2], _extent(cpu[0], cpu[2] > 0),
+                               6, 2, 2500.0, 2)
+    terr = float(((loc.cpu() - loc_cpu).abs().amax(0)
+                  / loc_cpu.abs().amax(0).clamp(min=1e-30)).max())
+    print(f"FMM local table, card vs CPU: {terr:.3e} of the channel scale "
+          f"(gate 1e-5; TF32 in the M2L conv would give ~1e-3)")
+    check(terr < 1e-5, f"card FMM differs from the CPU's by {terr}")
+
+    # all overlaps inside the window: cell 32000/64 = 500 > 2 r_max = 30
+    pos = rng.uniform(-16000, 16000, (n, 2)).astype(np.float32)
+    radius = rng.uniform(1, 15, n).astype(np.float32)
+    t = [torch.from_numpy(x).to(dev) for x in (pos, vel, mass, radius)]
+    lv, near, k, comp = bh.pick_levels(t[0], t[2], levels=6, near="slots")
+    for mode in ("reference", "momentum", "elastic"):
+        got = bh.bh_accumulators(*t, eps=10.0, mode=mode, levels=lv,
+                                 neighbor_k=k, comp_cap=comp, near=near)
+        ex = pair_accumulators_kernel(*t, eps=10.0, mode=mode)
+        ok = True
+        if mode == "reference":
+            ok &= bool(torch.equal(got.died, ex.died))
+            ok &= bool(torch.allclose(got.gained_mass, ex.gained_mass,
+                                      rtol=1e-5, atol=0))
+            detail = f"{int(ex.died.sum())} deaths"
+        elif mode == "momentum":
+            ok &= bool(torch.equal(got.parent, ex.parent))
+            detail = f"{int((ex.best_mass > -np.inf).sum())} candidates"
+        else:
+            e = float((got.dv - ex.dv).abs().max()
+                      / ex.dv.abs().max().clamp(min=1e-30))
+            ok &= e < 2e-5
+            detail = f"dv {e:.3e} of the largest"
+        print(f"bh vs exact collision channels N={n} {mode} (levels {lv}, "
+              f"K {k}): {'exact' if ok else 'DIFFER'}, {detail}")
+        check(ok, f"bh collision channels differ from exact: {mode}")
+
+
+def run_cli(argv, cfg_text, tmp):
+    """Run nbodyax_torch.cli on ``cfg_text``; returns (stdout, rc)."""
+    from nbodyax_torch import cli
+    path = os.path.join(tmp, "nbodyConfig.txt")
+    with open(path, "w") as f:
+        f.write(cfg_text)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["--config", path] + argv)
+    return buf.getvalue(), rc
+
+
+def config_text(cfg):
+    from nbodyax_torch.config import _KEYS
+    out = []
+    for key, (attr, _) in _KEYS.items():
+        v = getattr(cfg, attr)
+        out.append(f"{key}={str(v).lower() if isinstance(v, bool) else v}")
+    return "\n".join(out) + "\n"
+
+
+def phase_bh_main_path(cfg):
+    """The CLI on the N = 1M bh configuration for 20 steps: the knobs it
+    picked, bh_overflow 0, a finite state, B3 and B5 once a step. Returns
+    (B3 launches, B5 launches)."""
+    from nbodyax_torch.physics.near_kernel import slots_near
+    from nbodyax_torch.physics.slotpack_kernel import pack_slots
+    with tempfile.TemporaryDirectory() as tmp:
+        slots_near.launches = 0
+        pack_slots.moment_launches = 0
+        out, rc = run_cli([], config_text(cfg), tmp)
+        b3, b5 = slots_near.launches, pack_slots.moment_launches
+    check(rc == 0, f"bh cli exited {rc}")
+    knobs = [l for l in out.splitlines() if l.startswith("bh auto-selected")]
+    check(len(knobs) == 1, "no 'bh auto-selected' line")
+    logs = [json.loads(l) for l in out.splitlines() if l.startswith("{")]
+    steps = cfg.total_iterations
+    check(len(logs) == steps // cfg.log_every, f"log lines: {len(logs)}")
+    for rec in logs:
+        check(rec["bh_overflow"] == 0, f"bh_overflow {rec['bh_overflow']}")
+        check(all(np.isfinite(v) for v in rec.values()
+                  if isinstance(v, float)), f"non-finite log values: {rec}")
+    check(b3 == steps and b5 == steps,
+          f"B3 launched {b3} and B5 {b5} times in {steps} steps")
+    taken = [l for l in out.splitlines() if l.startswith("Time taken: ")]
+    check(len(taken) == 1, "no 'Time taken:' line")
+    last = logs[-1]
+    print(f"bh main path N={cfg.particle_count}: {knobs[0]}")
+    print(f"bh main path: {steps} steps, B3 {b3} and B5 {b5} launches, "
+          f"bh_overflow {[r['bh_overflow'] for r in logs]}, "
+          f"bh_giant_excess {last['bh_giant_excess']}, {last['alive']} "
+          f"alive, {taken[0]}, {last['steps_per_sec']:.6g} steps/s "
+          f"(device-timed, cumulative), last window {last['wall_ms']:.4f} "
+          f"ms a step")
+    return b3, b5
+
+
+def phase_bh_direct():
+    """bhFar=direct bhOrder=1 on the CLI at N = 65,536 for 10 steps: the
+    slots engine packs with B4 (no moments wanted) once a step."""
+    from nbodyax_torch.config import SimConfig
+    from nbodyax_torch.physics.slotpack_kernel import pack_slots
+    cfg = SimConfig(particle_count=65536, total_iterations=10,
+                    save_images=False, force_model="bh", bh_far="direct",
+                    bh_order=1, bh_near="slots")
+    with tempfile.TemporaryDirectory() as tmp:
+        pack_slots.launches = 0
+        out, rc = run_cli([], config_text(cfg), tmp)
+        b4 = pack_slots.launches
+    check(rc == 0, f"bh direct cli exited {rc}")
+    logs = [json.loads(l) for l in out.splitlines() if l.startswith("{")]
+    check(logs and logs[-1]["bh_overflow"] == 0, f"direct logs {logs[-1:]}")
+    check(b4 == 10, f"B4 launched {b4} times in 10 steps")
+    print(f"bhFar=direct bhOrder=1 N=65536: 10 steps, B4 {b4} launches, "
+          f"{logs[-1]['alive']} alive")
+    return b4
+
+
+def phase_bh_timing(dev, arrays_1m, cfg):
+    """B3, B4 and B5 against their plain versions at N = 1M (CUDA events,
+    turns plain, kernel, kernel, plain), one bh step (device span and host
+    wall), and one step's torch.profiler device ops and idle share."""
+    from nbodyax_torch.driver import resolve_bh_config
+    from nbodyax_torch.backends import build_accum_fn
+    from nbodyax_torch.physics.near_kernel import (slots_near,
+                                                   slots_near_reference)
+    from nbodyax_torch.physics.slotpack_kernel import (
+        build_slot_grid_reference, finest_moments_reference, pack_slots)
+    from nbodyax_torch.physics.step import PhysicsParams, make_step
+    from nbodyax_torch.state import make_state
+
+    levels, S, ci = 8, 40, 32
+    (pos, _, mass, _), ext, st = bh_structure(arrays_1m, dev, levels, False)
+    n, ncells = pos.shape[0], 1 << 16
+    fslot = pack_slots(st[4], st[2], st[3], S)
+    kw = dict(mode="reference", eps2=0.0, growth=0.1, g=1 << levels, ring=1,
+              ci=ci)
+    fns = {
+        "B3": (lambda: slots_near(fslot, **kw),
+               lambda: slots_near_reference(fslot, **kw)),
+        "B4": (lambda: pack_slots(st[4], st[2], st[3], S),
+               lambda: build_slot_grid_reference(st[4], st[2], st[3], n,
+                                                 ncells, S)),
+        "B5": (lambda: pack_slots(st[4], st[2], st[3], S,
+                                  moments=(pos, mass, ext, levels)),
+               lambda: (build_slot_grid_reference(st[4], st[2], st[3], n,
+                                                  ncells, S),
+                        finest_moments_reference(pos, mass, ext, levels))),
+    }
+    times = {}
+    for name, (kern, plain) in fns.items():
+        t = {"kernel": [], "plain": []}
+        for which in ("plain", "kernel", "kernel", "plain"):
+            fn = kern if which == "kernel" else plain
+            t[which].append(time_ms(fn, reps=5 if which == "plain" else 20))
+        print(f"{name} N=1M: kernel {t['kernel']} ms, plain {t['plain']} ms")
+        times[name] = (float(np.mean(t["kernel"])),
+                       float(np.mean(t["plain"])))
+
+    state = make_state(*arrays_1m, device=dev)
+    rcfg = resolve_bh_config(cfg, state)
+    p = PhysicsParams.from_config(rcfg)
+    step = make_step(p, accum_fn=build_accum_fn(rcfg.backend, p, dev, rcfg))
+    step(state)
+    torch.cuda.synchronize()
+    dev_ms = time_ms(lambda: step(state), reps=5)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        step(state)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / 5 * 1e3
+    print(f"bh step N=1M ({rcfg.bh_near}, levels {rcfg.bh_levels}, K "
+          f"{rcfg.bh_neighbor_k}): {dev_ms:.4f} ms CUDA-event span, "
+          f"{wall_ms:.4f} ms host wall a step")
+
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            step(state)
+        torch.cuda.synchronize()
+        win = (time.perf_counter() - t0) * 1e6
+    from torch.autograd import DeviceType
+    rows = []
+    for ev in prof.key_averages():
+        d = getattr(ev, "self_device_time_total",
+                    getattr(ev, "self_cuda_time_total", 0))
+        if d > 0 and ev.device_type == DeviceType.CUDA:   # kernels only
+            rows.append((d, ev.key, ev.count))
+    rows.sort(reverse=True)
+    total = sum(r[0] for r in rows)
+    print(f"profiler, 3 bh steps N=1M: {total / 3e3:.4f} ms device time a "
+          f"step in {sum(r[2] for r in rows) // 3} device ops, window "
+          f"{win / 3e3:.4f} ms a step, device idle "
+          f"{100 * (1 - total / win):.1f}%")
+    for d, key, cnt in rows[:12]:
+        print(f"  {d / 3e3:9.4f} ms/step  {100 * d / total:5.1f}%  "
+              f"x{cnt // 3:<4d} {key[:90]}")
+    return times
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this needs a CUDA card")
@@ -550,7 +958,7 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
     _build.load_library()
-    print(f"kernel build + load: {time.perf_counter() - t0:.3f} s "
+    print(f"kernel builds + load: {time.perf_counter() - t0:.3f} s "
           f"({', '.join(src.name for src in _build.SOURCES)})")
 
     cfg = SimConfig()
@@ -572,6 +980,14 @@ def main() -> int:
     phase_main_path(steps=20, integrator="leapfrog")
     bwd_ms, bwd_plain_ms = phase_bwd_timing(dev, scene)
     phase_grad_over_forward(default_state)
+    bh_cfg = million_config()
+    arrays_1m = million_scene(bh_cfg)
+    b5_max_abs_err, b4_max_abs_err = phase_slotpack(dev, arrays_1m)
+    b3_max_abs_err = phase_near(dev, arrays_1m)
+    phase_bh_vs_exact(dev)
+    b3_launches, b5_launches = phase_bh_main_path(bh_cfg)
+    b4_launches = phase_bh_direct()
+    bh_times = phase_bh_timing(dev, arrays_1m, bh_cfg)
     loaded = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jaxlib", "nbodyax")]
     check(not loaded, f"the port loaded JAX or nbodyax: {loaded[:5]}")
@@ -587,7 +1003,22 @@ def main() -> int:
         "source": "nbodyax_torch/csrc/pair_bwd_kernel.cu",
         "replaces": "nbodyax/physics/kernels_bwd.py:79",
         "launches": bwd_launches, "max_abs_err": bwd_max_abs_err,
-        "ms": bwd_ms, "plain_ms": bwd_plain_ms}]}))
+        "ms": bwd_ms, "plain_ms": bwd_plain_ms}, {
+        "name": "near_kernel", "route": "cuda",
+        "source": "nbodyax_torch/csrc/near_kernel.cu",
+        "replaces": "nbodyax/physics/near_pallas.py:96",
+        "launches": b3_launches, "max_abs_err": b3_max_abs_err,
+        "ms": bh_times["B3"][0], "plain_ms": bh_times["B3"][1]}, {
+        "name": "slot_pack_kernel", "route": "cuda",
+        "source": "nbodyax_torch/csrc/slotpack_kernel.cu",
+        "replaces": "nbodyax/physics/slotpack_pallas.py:99",
+        "launches": b4_launches, "max_abs_err": b4_max_abs_err,
+        "ms": bh_times["B4"][0], "plain_ms": bh_times["B4"][1]}, {
+        "name": "slot_pack_moments_kernel", "route": "cuda",
+        "source": "nbodyax_torch/csrc/slotpack_kernel.cu",
+        "replaces": "nbodyax/physics/slotpack_pallas.py:123",
+        "launches": b5_launches, "max_abs_err": b5_max_abs_err,
+        "ms": bh_times["B5"][0], "plain_ms": bh_times["B5"][1]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -141,11 +141,12 @@ class SimConfig:
                                           # gathers + exact-target annulus)
                                           # | direct (gathered per-cell
                                           # windows, exact target)
-    bh_pallas: str = "auto"               # fused Pallas near-field kernel
-                                          # for bhNear=slots: auto (on TPU
-                                          # hardware) | on (anywhere; CPU
-                                          # interprets — tests only) | off
-                                          # (jnp engine)
+    bh_pallas: str = "auto"               # near-field and slot-pack
+                                          # kernels for bhNear=slots: auto
+                                          # (the CUDA kernels on a CUDA
+                                          # device) | on (the kernels; an
+                                          # error without a card) | off
+                                          # (the plain torch engine)
     bh_comp_cap: int = 0                  # completion-pass budget: bodies
                                           # past their cell's fast-pass slot
                                           # cap finished exactly per-body
@@ -160,7 +161,6 @@ class SimConfig:
                                           # r_i+r_j <= ring*cell; merged
                                           # giants outgrow it) — O(N*B)
                                           # collision-only pass; 0 = off
-                                          # (single-device bh only)
     bh_adapt: bool = True                 # driver self-tuning between log
                                           # windows: widen bhNeighborK when
                                           # bh_overflow is logged, coarsen

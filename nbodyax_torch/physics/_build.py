@@ -2,12 +2,13 @@
 
 ``nvcc`` compiles each source under ``nbodyax_torch/csrc/`` into a shared
 library with a plain C interface, loaded with ``ctypes``: ``pair_kernel.cu``
-(the all-pairs forward pass) and ``pair_bwd_kernel.cu`` (its analytic
-backward pass). The libraries are built at first use into
-``build/nbodyax_torch/`` beside the package, one ``nvcc`` a source, all
-started together, and keyed by a hash of both sources and the flags, so an
-edited source rebuilds and unchanged ones load in milliseconds. Nothing is
-compiled at import.
+(the all-pairs forward pass), ``pair_bwd_kernel.cu`` (its analytic
+backward pass), ``near_kernel.cu`` (the bh near field) and
+``slotpack_kernel.cu`` (the bh slot-grid pack and finest moments). The
+libraries are built at first use into ``build/nbodyax_torch/`` beside the
+package, one ``nvcc`` a source, all started together, and keyed by a hash
+of every source and the flags, so an edited source rebuilds and unchanged
+ones load in milliseconds. Nothing is compiled at import.
 """
 
 from __future__ import annotations
@@ -25,8 +26,9 @@ from types import SimpleNamespace
 __all__ = ["load_library", "SOURCES", "BUILD_DIR"]
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "pair_kernel.cu",
-           _PKG / "csrc" / "pair_bwd_kernel.cu")
+SOURCES = tuple(_PKG / "csrc" / name for name in (
+    "pair_kernel.cu", "pair_bwd_kernel.cu", "near_kernel.cu",
+    "slotpack_kernel.cu"))
 BUILD_DIR = _PKG.parent / "build" / "nbodyax_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
@@ -45,16 +47,24 @@ def _nvcc() -> str:
                        "to build the nbodyax_torch CUDA kernels")
 
 
-def _bind(fwd: ctypes.CDLL, bwd: ctypes.CDLL) -> SimpleNamespace:
+def _bind(fwd: ctypes.CDLL, bwd: ctypes.CDLL, near: ctypes.CDLL,
+          pack: ctypes.CDLL) -> SimpleNamespace:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    acc = fwd.nbodyax_pair_accumulators
-    acc.argtypes = [p, i, p, i, i, i, i, f, f, p, p, p]
-    acc.restype = ctypes.c_int
-    back = bwd.nbodyax_pair_backward
-    back.argtypes = [p, i, p, i, i, i, p, i, i, f, f, p, p]
-    back.restype = ctypes.c_int
-    return SimpleNamespace(nbodyax_pair_accumulators=acc,
-                           nbodyax_pair_backward=back)
+    fns = {}
+    for lib, name, args in (
+            (fwd, "nbodyax_pair_accumulators",
+             [p, i, p, i, i, i, i, f, f, p, p, p]),
+            (bwd, "nbodyax_pair_backward",
+             [p, i, p, i, i, i, p, i, i, f, f, p, p]),
+            (near, "nbodyax_slots_near", [p, i, i, i, i, i, i, f, f, p, p]),
+            (pack, "nbodyax_slot_pack", [p, i, p, p, i, i, p, p]),
+            (pack, "nbodyax_slot_pack_moments",
+             [p, i, p, p, i, i, i, p, p, p, p])):
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    return SimpleNamespace(**fns)
 
 
 def _build_all(targets) -> None:
@@ -90,8 +100,8 @@ def _build_all(targets) -> None:
 
 
 def load_library() -> SimpleNamespace:
-    """Compile (once per hash of the sources and flags) and load both
-    kernel libraries; returns their two bound entry points."""
+    """Compile (once per hash of the sources and flags) and load every
+    kernel library; returns their bound entry points."""
     global _lib
     with _lock:
         if _lib is not None:

@@ -98,11 +98,16 @@ def squared_distance(dp: torch.Tensor) -> torch.Tensor:
 
 def pair_accumulators_chunk(pi, vi, mi, ri, ii, pos, vel, mass, radius, jj, *,
                             eps2: float, growth_rate: float,
-                            mode: str) -> PairAccumulators:
+                            mode: str, pair_mask=None,
+                            with_force: bool = True) -> PairAccumulators:
     """Accumulators for an i chunk [C] against a j set [M].
 
     ``ii`` / ``jj`` are global body ids (int32); the self pair is skipped by
     id equality. ``eps2`` and ``growth_rate`` are float32 values.
+    ``pair_mask`` (bool [C, M]) restricts the pass to a pair subset: it is
+    ANDed into the validity gate, so masked pairs add nothing to any
+    channel. ``with_force=False`` skips the gravity sum (force stays 0).
+    The bh giant pass uses both for its collision-only pairs.
     """
     alive_j = (mass > 0)[None, :]
     alive_i = (mi > 0)[:, None]
@@ -113,16 +118,19 @@ def pair_accumulators_chunk(pi, vi, mi, ri, ii, pos, vel, mass, radius, jj, *,
     rsum = ri[:, None] + radius[None, :]
     overlap = d2 <= rsum * rsum
     valid = alive_i & alive_j & (ii[:, None] != jdx)
+    if pair_mask is not None:
+        valid &= pair_mask
     overlap &= valid
 
     out = empty_accumulators(ii, dim=pi.shape[-1])
-    fmask = valid if mode == "elastic" else valid & ~overlap
-    d2_eff = d2 + eps2
-    safe = fmask & (d2_eff > 0)
-    inv = torch.rsqrt(torch.where(safe, d2_eff, torch.ones_like(d2_eff)))
-    w = torch.where(safe, mass[None, :] * (inv * inv * inv),
-                    torch.zeros_like(inv))
-    out = out._replace(force=_axis_sum(w, dp))
+    if with_force:
+        fmask = valid if mode == "elastic" else valid & ~overlap
+        d2_eff = d2 + eps2
+        safe = fmask & (d2_eff > 0)
+        inv = torch.rsqrt(torch.where(safe, d2_eff, torch.ones_like(d2_eff)))
+        w = torch.where(safe, mass[None, :] * (inv * inv * inv),
+                        torch.zeros_like(inv))
+        out = out._replace(force=_axis_sum(w, dp))
 
     zero = torch.zeros((), dtype=torch.float32, device=pos.device)
     if mode == "reference":

@@ -105,7 +105,8 @@ def test_symplectic_integrators_run_end_to_end(config, tmp_path, capsys,
 def test_port_imports_no_jax():
     code = ("import sys, nbodyax_torch, nbodyax_torch.cli, "
             "nbodyax_torch.physics.kernels, nbodyax_torch.driver, "
-            "nbodyax_torch.physics.kernels_bwd, nbodyax_torch.autodiff; "
+            "nbodyax_torch.physics.kernels_bwd, nbodyax_torch.autodiff, "
+            "nbodyax_torch.physics.barneshut; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'nbodyax.')) or m == 'nbodyax']; "
             "assert not bad, bad")
@@ -132,7 +133,7 @@ def test_missing_config_errors(tmp_path, capsys):
 @pytest.mark.parametrize("override,item", [
     (dict(checkpoint_every=5), "A8"), (dict(resume_from="x.npz"), "A8"),
     (dict(compact_every=5), "A8"), (dict(energy_every=10), "A8"),
-    (dict(force_model="bh"), "A10"), (dict(shards=2), "A11"),
+    (dict(force_model="bh", dimensions=3), "A10"), (dict(shards=2), "A11"),
     (dict(dimensions=3), "A5"), (dict(adaptive_dt=True), "A5"),
     (dict(scene="galaxy"), "A3"),
 ])

@@ -214,3 +214,104 @@ def test_autograd_function_on_the_card(cuda, mode):
                + (acc.gained_radius * wd[:, 5]).sum())
         grads.append([g.cpu() for g in torch.autograd.grad(out, xs)])
     assert_bwd_close(*grads)
+
+
+# ---------------------------------------------------------------------------
+# The bh kernels: near field B3 (csrc/near_kernel.cu), slot pack B4 and B5
+# (csrc/slotpack_kernel.cu)
+# ---------------------------------------------------------------------------
+
+NEAR_GATE = 2e-5    # of the channel's largest value (test_barneshut.py:385)
+
+
+def bh_grid_inputs(n, seed, dev, levels, need_vel, crowd=True):
+    """A slot grid's inputs on ``dev``: a quarter of the bodies crowded
+    into the centre cells, body 7 dead, the rest out to the grid edges."""
+    from nbodyax_torch.physics.bh_grid import _extent, _partner_structure
+    rng = np.random.RandomState(seed)
+    pos = rng.uniform(-1e5, 1e5, (n, 2)).astype(np.float32)
+    if crowd:
+        pos[: n // 4] = rng.uniform(-30, 30, (n // 4, 2))
+    vel = rng.uniform(-3, 3, (n, 2)).astype(np.float32)
+    mass = rng.uniform(1e4, 1e17, n).astype(np.float32)
+    mass[7] = 0.0
+    radius = rng.uniform(50, 200, n).astype(np.float32)
+    t = [torch.from_numpy(x).to(dev) for x in (pos, vel, mass, radius)]
+    ext = _extent(t[0], t[2] > 0)
+    return t, ext, _partner_structure(*t, ext, 1 << levels, need_vel)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("eps", [0.0, 100.0])
+@pytest.mark.parametrize("ring", [1, 2])
+def test_near_kernel_matches_plain_version(cuda, mode, eps, ring):
+    from nbodyax_torch.physics.near_kernel import (slots_near,
+                                                   slots_near_reference)
+    from nbodyax_torch.physics.slotpack_kernel import pack_slots
+    _, _, st = bh_grid_inputs(8192, 3, cuda, 4, mode == "elastic")
+    fslot = pack_slots(st[4], st[2], st[3], 48)
+    kw = dict(mode=mode, eps2=eps * eps, growth=0.1, g=16, ring=ring, ci=40)
+    k = slots_near(fslot, **kw)
+    p = slots_near_reference(fslot, **kw)
+    live = fslot[:, :40, 4 if mode == "elastic" else 2] > 0
+    k, p = k[live], p[live]
+    fin = torch.isfinite(p)
+    assert torch.equal(fin, torch.isfinite(k))
+    k, p = torch.where(fin, k, 0.0), torch.where(fin, p, 0.0)
+    scale = p.abs().amax(0).clamp(min=1e-30)
+    exact = {"reference": [4], "momentum": [3, 4]}.get(mode, [])
+    for c in range(8):
+        if c in exact:
+            assert torch.equal(k[:, c], p[:, c]), c
+        else:
+            assert float((k[:, c] - p[:, c]).abs().max() / scale[c]) \
+                < NEAR_GATE, c
+
+
+def test_near_kernel_deterministic_and_counted(cuda):
+    from nbodyax_torch.physics.near_kernel import slots_near
+    from nbodyax_torch.physics.slotpack_kernel import pack_slots
+    _, _, st = bh_grid_inputs(4096, 5, cuda, 4, False)
+    fslot = pack_slots(st[4], st[2], st[3], 40)
+    kw = dict(mode="momentum", eps2=0.0, growth=0.1, g=16, ring=1, ci=32)
+    before = slots_near.launches
+    assert torch.equal(slots_near(fslot, **kw), slots_near(fslot, **kw))
+    assert slots_near.launches == before + 2
+
+
+@pytest.mark.parametrize("crowd", [False, True])
+@pytest.mark.parametrize("need_vel", [False, True])
+def test_slot_pack_kernels_match_plain_versions(cuda, crowd, need_vel):
+    """B4 and B5 rows bitwise equal to the gather; B5 moments within 2e-6
+    of max(per-channel scale, 1) of the scatter."""
+    from nbodyax_torch.physics.slotpack_kernel import (
+        build_slot_grid_reference, finest_moments_reference, pack_slots)
+    (pos, _, mass, _), ext, st = bh_grid_inputs(32768, 7, cuda, 5, need_vel,
+                                                crowd)
+    before = (pack_slots.launches, pack_slots.moment_launches)
+    rows4 = pack_slots(st[4], st[2], st[3], 40)
+    rows5, mom = pack_slots(st[4], st[2], st[3], 40,
+                            moments=(pos, mass, ext, 5))
+    assert (pack_slots.launches, pack_slots.moment_launches) == (
+        before[0] + 1, before[1] + 1)
+    want = build_slot_grid_reference(st[4], st[2], st[3], 32768, 1024, 40)
+    assert torch.equal(rows4, want) and torch.equal(rows5, want)
+    ref = finest_moments_reference(pos, mass, ext, 5)
+    scale = ref.abs().amax(0).clamp(min=1.0)
+    assert float(((mom - ref).abs().amax(0) / scale).max()) < 2e-6
+
+
+def test_bh_accumulators_kernels_match_plain_engine(cuda):
+    """bh_accumulators through B3 and B5 against the same call on the
+    plain torch engine (bhPallas=off) on the card."""
+    from nbodyax_torch.physics.barneshut import bh_accumulators
+    t, _, _ = bh_grid_inputs(16384, 9, cuda, 5, False)
+    kw = dict(eps=0.0, mode="reference", levels=5, neighbor_k=0,
+              near="slots")
+    a = bh_accumulators(*t, near_kernel="on", **kw)
+    b = bh_accumulators(*t, near_kernel="off", **kw)
+    assert float((a.force - b.force).abs().max()
+                 / b.force.abs().max()) < NEAR_GATE
+    assert torch.equal(a.died, b.died)
+    torch.testing.assert_close(a.gained_mass, b.gained_mass, rtol=1e-5,
+                               atol=0)
