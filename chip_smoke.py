@@ -9,22 +9,29 @@ Phases, each of which exits non-zero on failure:
 
 1. print the card's name and power limit; build the four CUDA sources of
    ``nbodyax_torch/csrc`` (one ``nvcc`` a source, in parallel) and print the
-   build time;
+   build time and ptxas's registers and spills of the all-pairs kernels;
 2. compare the all-pairs kernel with its plain PyTorch version on the card,
    in all four collision modes, at N = 300 (random, dense overlaps) and at
    N = 16,384 (the default scene), each with a dead slot, plus offset calls
-   over split j halves, at the gates of tests/test_kernels.py;
+   over split j halves, at the gates of tests/test_kernels.py and the force
+   within 3e-7 of the largest, ids past 2^30 and two calls bitwise equal
+   (at N = 16,384 the partners are split across blocks), and a momentum
+   tie whose equal-mass candidates lie in different splits;
 3. run the external C++-oracle golden ``tests/golden/ref_n1k.npz`` for 200
    steps through the kernel, at the gates of tests/test_golden.py, and 20
    steps of the default scene through the kernel against the plain path;
 4. run the main path: ``nbodyax_torch.cli`` with the built-in default
    config (N = 16,384, seed 1024) for 200 steps with a frame every 10, and
    check the 20 P5 frames, the log and that every step launched the kernel;
-5. time the kernel against its plain version at N = 16,384;
+5. time the kernel against its plain version at N = 16,384 and alone at
+   N = 131,072, with the splits chosen, the CUDA launches a call, pairs/s,
+   the share of the bound and the SM clock under load; profile one
+   default-scene step;
 6. compare the backward kernel with its plain version on the same inputs
    as phase 2, in all four modes at eps = 0 and in elastic mode at eps = 5,
    with a numpy-made cotangent, plus offset calls whose two j halves sum
-   to the full call, at tests/test_autodiff.py's gate (3e-6);
+   to the full call, at tests/test_autodiff.py's gate (3e-6), and two
+   calls bitwise equal;
 7. the differentiable path at full width: the gradient of a 4-step euler
    and a 2-step leapfrog rollout of the default scene (softening 100,
    bench/grad_step.py's terminal loss) with respect to the initial pos and
@@ -33,8 +40,9 @@ Phases, each of which exits non-zero on failure:
 8. the shooting descent of tests/test_autodiff.py through the kernels;
 9. ``nbodyax_torch.cli`` with ``integrator=leapfrog`` for 20 steps, two
    forward launches a step;
-10. time the backward kernel against its plain version, and one gradient
-    step against one forward step, at N = 16,384;
+10. time the backward kernel against its plain version at N = 16,384 and
+    alone at N = 131,072 (as phase 5), one gradient step against one
+    forward step, and profile one gradient call;
 11. ``forceModel=bh``'s slot-pack kernels (B5, and B4 without moments)
     against their plain versions on examples/million_bodies.txt's scene
     (N = 1,048,576) and on a crowded state: rows bitwise, moments at 2e-6;
@@ -48,10 +56,13 @@ Phases, each of which exits non-zero on failure:
     ``forceModel=bh`` and default bh knobs for 20 steps: the knobs it
     picked, ``bh_overflow`` 0, B3 and B5 once a step;
 15. ``bhFar=direct bhOrder=1`` on the CLI at N = 65,536: B4 once a step;
-16. B3, B4 and B5 timed against their plain versions at N = 1M, one bh
+16. B3, B4 and B5 timed against their plain versions at N = 1M (B4 also
+    against one gather), with bounds from the run's cell occupancy, one bh
     step, and one step's profiler breakdown and device idle share.
 
-The line before the last is a JSON object describing each kernel; the last
+The line before the last is a JSON object describing each kernel (its
+time, its plain version's, its bound against the H100's peak FP32 rate or
+memory rate, and one PyTorch call's time where there is one); the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside
 a checkout, it exits non-zero and prints no result.
 """
@@ -75,6 +86,16 @@ STEPS = 200
 FRAME_EVERY = 10
 BWD_GATE = 3e-6     # tests/test_autodiff.py:201, of the largest component
 GRAD_GATE = 1e-5    # rollout gradient, kernel path against the oracle path
+FORCE_GATE = 3e-7   # B1's force against its plain version, of the largest
+# Peak rates of one H100 SXM at its 700 W limit (the on-chip-measurement
+# guide: NVIDIA's data sheet): FP32 outside the tensor cores, HBM3.
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+# FP32 flops a pair (rsqrt counted as one), as the kernels' source notes
+# count them: B1 and B3 18, B2 29 for each side.
+B1_FLOPS_PER_PAIR = 18
+B2_FLOPS_PER_PAIR_SIDE = 29
+B3_FLOPS_PER_PAIR = 18
 
 
 def fail(msg: str) -> None:
@@ -120,6 +141,82 @@ def equivalence_errors(a, b, mode):
     return err, ok
 
 
+def bound_ms(flops=0.0, nbytes=0.0):
+    """The least time the card could take: (ms, "operations" or "bytes")."""
+    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def cuda_launches(fn, tag="pair"):
+    """CUDA launches one call of fn makes, by torch.profiler: the runtime's
+    launch calls, and the traced kernels whose name holds ``tag`` (CUPTI
+    has been seen to drop a long kernel's record after earlier profiles
+    in one process, so the launch calls are the count reported)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = prof.key_averages()
+    calls = sum(ev.count for ev in evs
+                if ev.key.startswith("cudaLaunchKernel"))
+    traced = sum(ev.count for ev in evs
+                 if ev.device_type == DeviceType.CUDA and tag in ev.key)
+    return f"{calls} CUDA launches a call ({traced} traced)"
+
+
+def tie_state(n, chunk):
+    """Body 0 overlapped by equal-mass bodies that beat it, on both sides
+    of the partner-split boundaries at ``chunk`` and ``2 * chunk``, the
+    rest spread far apart. Returns (arrays, tied ids)."""
+    rng = np.random.RandomState(4)
+    pos = rng.uniform(-1e6, 1e6, (n, 2)).astype(np.float32)
+    vel = np.zeros((n, 2), np.float32)
+    mass = rng.uniform(1, 100, n).astype(np.float32)
+    radius = np.full(n, 1.0, np.float32)
+    ties = [c for c in (chunk - 1, chunk, 2 * chunk + 5) if 0 < c < n]
+    pos[[0] + ties] = 0.0
+    mass[0] = 50.0
+    mass[ties] = 500.0
+    return (pos, vel, mass, radius), ties
+
+
+def split_chunk(n, splits):
+    """Partners a split walks (csrc/pair_common.cuh's split_chunk)."""
+    c = -(-n // splits)
+    return -(-c // 32) * 32
+
+
+def phase_tie_across_splits(dev, n):
+    """Momentum ties whose equal-mass candidates lie in different partner
+    splits: the lowest id must win, as in the plain version."""
+    from nbodyax_torch.physics.kernels import (body_features, decode_raw,
+                                               forward_splits,
+                                               tile_accumulators_raw,
+                                               tile_accumulators_raw_reference)
+    splits = forward_splits(n, n, "momentum", dev)
+    check(splits > 1, f"momentum at N={n}: the partners are not split")
+    arrays, ties = tie_state(n, split_chunk(n, splits))
+    pos, vel, mass, radius = (torch.from_numpy(x).to(dev) for x in arrays)
+    feats = body_features(pos, vel, mass, radius)
+    kw = dict(mode="momentum", eps=0.0, growth_rate=0.1)
+    a = decode_raw(*tile_accumulators_raw(feats, feats, 0, 0, **kw), 0,
+                   mass, "momentum")
+    b = decode_raw(*tile_accumulators_raw_reference(feats, feats, 0, 0,
+                                                    **kw), 0, mass,
+                   "momentum")
+    err, ok = equivalence_errors(a, b, "momentum")
+    got = [int(a.parent[0]), int(a.parent[max(ties)])]
+    print(f"momentum tie across splits N={n} ({splits} splits, ties at "
+          f"{ties}): parents {got}, {json.dumps(err)}")
+    check(ok and got == [min(ties)] * 2, f"momentum tie across splits: "
+          f"parents {got}, want {min(ties)}; {err}")
+
+
 def phase_kernel_vs_plain(dev, default_scene):
     from nbodyax_torch.physics.kernels import (MODES, body_features,
                                                decode_raw,
@@ -143,6 +240,25 @@ def phase_kernel_vs_plain(dev, default_scene):
             print(f"kernel vs plain N={n} {mode}: {json.dumps(err)}")
             check(ok, f"kernel disagrees with its plain version at N={n} "
                       f"mode={mode}: {err}")
+            check(err["force_rel"] < FORCE_GATE, f"force at N={n} {mode}: "
+                  f"{err['force_rel']} of the largest (gate {FORCE_GATE})")
+            # two calls, bit for bit (at N = 16,384 the partners are split)
+            rk2, pk2 = tile_accumulators_raw(feats, feats, 0, 0, **kw)
+            same = torch.equal(rk, rk2) and (
+                pk is None or torch.equal(pk, pk2))
+            print(f"kernel N={n} {mode}: two calls bitwise equal: {same}")
+            check(same, f"kernel N={n} {mode}: two calls differ")
+            if mode in ("reference", "momentum"):
+                # ids past 2^24, where an f32 id would round: shifting
+                # every id by one base changes only the parents, by it
+                base = (1 << 30) + 3
+                rb, pb = tile_accumulators_raw(feats, feats, base, base, **kw)
+                kb = decode_raw(rb, pb, base, mass, mode)
+                same = (torch.equal(rb, rk)
+                        and torch.equal(kb.parent, a.parent + base))
+                print(f"kernel N={n} {mode} at ids from {base}: channels "
+                      f"and shifted parents exact: {same}")
+                check(same, f"kernel N={n} {mode} with large ids differs")
             if arrays is default_scene and mode == "reference":
                 # the main path's call: raw channels 0-5 of the live rows
                 max_abs_err = float((rk[alive, :6] - rp[alive, :6])
@@ -171,6 +287,7 @@ def phase_kernel_vs_plain(dev, default_scene):
             print(f"offset halves vs full N={n} {mode}: {json.dumps(err)}")
             check(ok, f"offset halves disagree with the full pass at N={n} "
                       f"mode={mode}: {err}")
+    phase_tie_across_splits(dev, default_scene[0].shape[0])
     return max_abs_err
 
 
@@ -306,10 +423,104 @@ def time_ms(fn, reps=20):
     return start.elapsed_time(end) / reps
 
 
-def phase_timing(dev, default_scene):
+def profile_breakdown(fn, reps, label, top=12):
+    """torch.profiler over ``reps`` calls of fn: device time and device ops
+    a call, the window's host wall, the device's idle share and the
+    heaviest kernels. Returns device ms a call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        win = (time.perf_counter() - t0) * 1e6
+    rows = []
+    for ev in prof.key_averages():
+        d = getattr(ev, "self_device_time_total",
+                    getattr(ev, "self_cuda_time_total", 0))
+        if d > 0 and ev.device_type == DeviceType.CUDA:   # kernels only
+            rows.append((d, ev.key, ev.count))
+    rows.sort(reverse=True)
+    total = sum(r[0] for r in rows)
+    print(f"profiler, {label}: {total / reps / 1e3:.4f} ms device time a "
+          f"call in {sum(r[2] for r in rows) // reps} device ops, window "
+          f"{win / reps / 1e3:.4f} ms a call, device idle "
+          f"{100 * (1 - total / win):.1f}%")
+    for d, key, cnt in rows[:top]:
+        print(f"  {d / reps / 1e3:9.4f} ms/call  {100 * d / total:5.1f}%  "
+              f"x{cnt // reps:<4d} {key[:90]}")
+    return total / reps / 1e3
+
+
+def scene_features(dev, n):
+    """The default config's uniform scene at N = n, as body features."""
+    from nbodyax_torch.config import SimConfig
+    from nbodyax_torch.physics.kernels import body_features
+    from nbodyax_torch.rng import scene_arrays
+    cfg = SimConfig()
+    arrays = scene_arrays(cfg.seed, n, cfg.field_width, cfg.field_height,
+                          cfg.min_body_mass, cfg.max_body_mass,
+                          cfg.min_radius, cfg.max_radius)
+    return body_features(*(torch.from_numpy(x).to(dev) for x in arrays))
+
+
+def b1_bound(n):
+    """B1's bound for n rows against n partners: 18 flops a pair; each
+    input row read once and each output row written once (32 B each)."""
+    return bound_ms(n * n * B1_FLOPS_PER_PAIR, 3 * n * 32)
+
+
+def clocks_under(fn, seconds=2.0, ms=1.0):
+    """The SM clock (MHz) and power draw (W) that nvidia-smi samples every
+    100 ms while fn, which takes about ``ms``, runs for ``seconds``: their
+    medians and the clock's range, as text."""
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        for _ in range(max(1, int(seconds * 1e3 / ms))):
+            fn()
+        torch.cuda.synchronize()
+    finally:
+        proc.terminate()
+        out, _ = proc.communicate(timeout=30)
+    rows = []
+    for line in out.splitlines():
+        try:
+            rows.append(tuple(float(v) for v in line.split(",")))
+        except ValueError:
+            continue
+    if not rows:
+        return "SM clock not read"
+    clk, watt = (sorted(c) for c in zip(*rows))
+    return (f"SM clock median {clk[len(clk) // 2]:.0f} MHz "
+            f"({clk[0]:.0f}-{clk[-1]:.0f}) and power "
+            f"{watt[len(watt) // 2]:.1f} W over {len(rows)} samples")
+
+
+def report_split_call(name, n, ms, splits, launches, bound):
+    print(f"{name} N={n}: {ms:.4f} ms, splits {splits}, {launches}, "
+          f"{n * n / (ms / 1e3):.6g} pairs/s, bound "
+          f"{bound[0]:.4f} ms ({bound[1]}), {100 * bound[0] / ms:.1f}% of "
+          f"the bound")
+
+
+def phase_timing(dev, default_scene, default_cfg):
+    """B1 against its plain version at N = 16,384 (turns plain, kernel,
+    kernel, plain), B1 alone at N = 131,072, and the profile of one forward
+    step of the default scene. Returns (kernel ms, plain ms, bound)."""
+    from nbodyax_torch.backends import build_accum_fn
     from nbodyax_torch.physics.kernels import (body_features,
+                                               forward_splits,
                                                tile_accumulators_raw,
                                                tile_accumulators_raw_reference)
+    from nbodyax_torch.physics.step import PhysicsParams, make_step
+    from nbodyax_torch.scenes import init_scene
     feats = body_features(*(torch.from_numpy(x).to(dev)
                             for x in default_scene))
     kw = dict(mode="reference", eps=0.0, growth_rate=0.1)
@@ -323,7 +534,25 @@ def phase_timing(dev, default_scene):
     for name, ts in times.items():
         print(f"{name} N={n} reference mode: {ts} ms "
               f"({n * n / (np.mean(ts) / 1e3):.6g} pairs/s)")
-    return float(np.mean(times["kernel"])), float(np.mean(times["plain"]))
+    ms = float(np.mean(times["kernel"]))
+    bound = b1_bound(n)
+    report_split_call("B1", n, ms, forward_splits(n, n, "reference", dev),
+                      cuda_launches(fns["kernel"]), bound)
+    print(f"B1 N={n}: {clocks_under(fns['kernel'], ms=ms)}")
+    big = scene_features(dev, 131072)
+    nb = big.shape[0]
+
+    def call():
+        return tile_accumulators_raw(big, big, 0, 0, **kw)
+    report_split_call("B1 alone", nb, time_ms(call, reps=5),
+                      forward_splits(nb, nb, "reference", dev),
+                      cuda_launches(call), b1_bound(nb))
+    p = PhysicsParams.from_config(default_cfg)
+    step = make_step(p, accum_fn=build_accum_fn("pallas", p, dev))
+    state = init_scene(default_cfg, device=dev)
+    profile_breakdown(lambda: step(state), 50,
+                      f"default scene step N={n} (no frame)")
+    return ms, float(np.mean(times["plain"])), bound
 
 
 def bwd_errors(got, want):
@@ -365,6 +594,12 @@ def phase_bwd_vs_plain(dev, default_scene):
                   f"backward kernel: non-finite gradient N={n} {mode}")
             check(max(err) < BWD_GATE, f"backward kernel disagrees with its "
                   f"plain version at N={n} mode={mode} eps={eps}: {err}")
+            # two calls, bit for bit (at N = 16,384 the partners are split)
+            again, _ = both(feats, feats, 0, 0, g, kw)
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            print(f"backward kernel N={n} {mode} eps={eps}: two calls "
+                  f"bitwise equal: {same}")
+            check(same, f"backward kernel N={n} {mode}: calls differ")
             if arrays is default_scene and (mode, eps) == ("reference", 0.0):
                 max_abs_err = max(float((a - b).abs().max())
                                   for a, b in zip(got, want))
@@ -505,9 +740,20 @@ def phase_shooting(dev):
     check(history[-1] < 0.01 * history[0], f"shooting: {history}")
 
 
+def b2_bound(n):
+    """B2's bound for n i bodies against n j bodies, both sides: 29 flops
+    a pair and side; features and cotangent read once, both gradients
+    written once (32 B a row each)."""
+    return bound_ms(2 * n * n * B2_FLOPS_PER_PAIR_SIDE, 5 * n * 32)
+
+
 def phase_bwd_timing(dev, default_scene):
+    """B2 against its plain version at N = 16,384 (turns plain, kernel,
+    kernel, plain) and B2 alone at N = 131,072. Returns (kernel ms, plain
+    ms, bound)."""
     from nbodyax_torch.physics.kernels import body_features
-    from nbodyax_torch.physics.kernels_bwd import (raw_backward,
+    from nbodyax_torch.physics.kernels_bwd import (backward_splits,
+                                                   raw_backward,
                                                    raw_backward_reference)
     feats = body_features(*(torch.from_numpy(x).to(dev)
                             for x in default_scene))
@@ -522,12 +768,28 @@ def phase_bwd_timing(dev, default_scene):
         times[name].append(time_ms(fns[name], reps=10))
     for name, ts in times.items():
         print(f"backward {name} N={n} reference mode, both sides: {ts} ms")
-    return float(np.mean(times["kernel"])), float(np.mean(times["plain"]))
+    ms = float(np.mean(times["kernel"]))
+    bound = b2_bound(n)
+    report_split_call("B2 (both sides)", n, ms,
+                      backward_splits(n, n, "reference", dev),
+                      cuda_launches(fns["kernel"]), bound)
+    print(f"B2 N={n}: {clocks_under(fns['kernel'], ms=ms)}")
+    big = scene_features(dev, 131072)
+    nb = big.shape[0]
+    gb = cotangent(nb, dev)
+
+    def call():
+        return raw_backward(big, big, 0, 0, None, gb, **kw)
+    report_split_call("B2 alone (both sides)", nb, time_ms(call, reps=3),
+                      backward_splits(nb, nb, "reference", dev),
+                      cuda_launches(call), b2_bound(nb))
+    return ms, float(np.mean(times["plain"])), bound
 
 
 def phase_grad_over_forward(state):
     """bench/grad_step.py's grad_over_forward: one gradient step of a
-    4-step euler rollout through the kernels, against one forward step."""
+    4-step euler rollout through the kernels, against one forward step, and
+    the profile of one gradient call."""
     from nbodyax_torch.backends import build_accum_fn
     from nbodyax_torch.physics.step import PhysicsParams, make_step
 
@@ -541,6 +803,9 @@ def phase_grad_over_forward(state):
     print(f"gradient step N={state.capacity} ({steps}-step euler rollout, "
           f"remat): {grad_ms:.4f} ms a step; forward step {fwd_ms:.4f} ms; "
           f"grad_over_forward {grad_ms / fwd_ms:.4f}")
+    profile_breakdown(lambda: rollout_grads(state, cfg, "pallas", steps), 3,
+                      f"gradient of a {steps}-step euler rollout "
+                      f"N={state.capacity}")
 
 
 # ---------------------------------------------------------------------------
@@ -890,8 +1155,39 @@ def phase_bh_timing(dev, arrays_1m, cfg):
             fn = kern if which == "kernel" else plain
             t[which].append(time_ms(fn, reps=5 if which == "plain" else 20))
         print(f"{name} N=1M: kernel {t['kernel']} ms, plain {t['plain']} ms")
-        times[name] = (float(np.mean(t["kernel"])),
-                       float(np.mean(t["plain"])))
+        times[name] = {"ms": float(np.mean(t["kernel"])),
+                       "plain_ms": float(np.mean(t["plain"])),
+                       "library_ms": None}
+    # B4's one PyTorch call: the gather by a precomputed slot index
+    pslots = st[2][:, None] + torch.arange(S, device=dev)
+    idx = torch.where(pslots < torch.minimum(st[3], st[2] + S)[:, None],
+                      pslots, n)
+    lib = [time_ms(lambda: st[4][idx], reps=20) for _ in range(2)]
+    times["B4"]["library_ms"] = float(np.mean(lib))
+    # bounds from this run's occupancy: live i slots against the live
+    # slots of their 3 x 3 window (clipped at the grid's edge)
+    g = 1 << levels
+    occ = (st[3] - st[2]).to(torch.int64).view(g, g)
+    live_i = occ.clamp(max=ci)
+    live_s = occ.clamp(max=S)
+    pad = torch.nn.functional.pad(live_s, (1, 1, 1, 1))
+    window = sum(pad[1 + dy:1 + dy + g, 1 + dx:1 + dx + g]
+                 for dy in (-1, 0, 1) for dx in (-1, 0, 1))
+    pairs = int((live_i * window).sum())
+    L = st[4].shape[1]
+    rows_moved = int(live_s.sum()) * L * 4
+    grid_bytes = ncells * S * L * 4 + 2 * ncells * st[2].element_size()
+    times["B3"]["bound"] = bound_ms(pairs * B3_FLOPS_PER_PAIR,
+                                    fslot.numel() * 4 + ncells * ci * 8 * 4)
+    times["B4"]["bound"] = bound_ms(0, rows_moved + grid_bytes)
+    times["B5"]["bound"] = bound_ms(0, rows_moved + grid_bytes + n * 12
+                                    + ncells * 6 * 4)
+    for name in ("B3", "B4", "B5"):
+        b, by = times[name]["bound"]
+        print(f"{name} N=1M: {times[name]['ms']:.4f} ms, bound {b:.4f} ms "
+              f"({by}; {pairs} live near pairs), "
+              f"{100 * b / times[name]['ms']:.1f}% of the bound; one "
+              f"PyTorch call: {times[name]['library_ms']} ms")
 
     state = make_state(*arrays_1m, device=dev)
     rcfg = resolve_bh_config(cfg, state)
@@ -909,30 +1205,7 @@ def phase_bh_timing(dev, arrays_1m, cfg):
           f"{rcfg.bh_neighbor_k}): {dev_ms:.4f} ms CUDA-event span, "
           f"{wall_ms:.4f} ms host wall a step")
 
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(3):
-            step(state)
-        torch.cuda.synchronize()
-        win = (time.perf_counter() - t0) * 1e6
-    from torch.autograd import DeviceType
-    rows = []
-    for ev in prof.key_averages():
-        d = getattr(ev, "self_device_time_total",
-                    getattr(ev, "self_cuda_time_total", 0))
-        if d > 0 and ev.device_type == DeviceType.CUDA:   # kernels only
-            rows.append((d, ev.key, ev.count))
-    rows.sort(reverse=True)
-    total = sum(r[0] for r in rows)
-    print(f"profiler, 3 bh steps N=1M: {total / 3e3:.4f} ms device time a "
-          f"step in {sum(r[2] for r in rows) // 3} device ops, window "
-          f"{win / 3e3:.4f} ms a step, device idle "
-          f"{100 * (1 - total / win):.1f}%")
-    for d, key, cnt in rows[:12]:
-        print(f"  {d / 3e3:9.4f} ms/step  {100 * d / total:5.1f}%  "
-              f"x{cnt // 3:<4d} {key[:90]}")
+    profile_breakdown(lambda: step(state), 3, "bh step N=1M")
     return times
 
 
@@ -960,6 +1233,12 @@ def main() -> int:
     _build.load_library()
     print(f"kernel builds + load: {time.perf_counter() - t0:.3f} s "
           f"({', '.join(src.name for src in _build.SOURCES)})")
+    for src in ("pair_kernel.cu", "pair_bwd_kernel.cu"):
+        log = _build.build_log(src)
+        used = [l.split(":", 1)[-1].strip() for l in (log or "").splitlines()
+                if "Used" in l or "spill" in l]
+        print(f"ptxas, {src}: " + ("; ".join(used) if used else
+                                   "no report (library built elsewhere)"))
 
     cfg = SimConfig()
     scene = list(scene_arrays(cfg.seed, cfg.particle_count, cfg.field_width,
@@ -972,13 +1251,13 @@ def main() -> int:
     max_abs_err = phase_kernel_vs_plain(dev, scene)
     phase_golden(dev, cfg)
     launches = phase_main_path()
-    ms, plain_ms = phase_timing(dev, scene)
+    ms, plain_ms, b1_bound_ = phase_timing(dev, scene, cfg)
     bwd_max_abs_err = phase_bwd_vs_plain(dev, scene)
     default_state = init_scene(cfg, device=dev)
     bwd_launches = phase_grad_path(default_state)
     phase_shooting(dev)
     phase_main_path(steps=20, integrator="leapfrog")
-    bwd_ms, bwd_plain_ms = phase_bwd_timing(dev, scene)
+    bwd_ms, bwd_plain_ms, b2_bound_ = phase_bwd_timing(dev, scene)
     phase_grad_over_forward(default_state)
     bh_cfg = million_config()
     arrays_1m = million_scene(bh_cfg)
@@ -992,33 +1271,30 @@ def main() -> int:
               if m.split(".")[0] in ("jax", "jaxlib", "nbodyax")]
     check(not loaded, f"the port loaded JAX or nbodyax: {loaded[:5]}")
 
+    rows = [
+        ("pair_kernel", "pair_kernel.cu", "nbodyax/physics/kernels.py:92",
+         launches, max_abs_err,
+         {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+          "bound": b1_bound_}),
+        ("pair_bwd_kernel", "pair_bwd_kernel.cu",
+         "nbodyax/physics/kernels_bwd.py:79", bwd_launches, bwd_max_abs_err,
+         {"ms": bwd_ms, "plain_ms": bwd_plain_ms, "library_ms": None,
+          "bound": b2_bound_}),
+        ("near_kernel", "near_kernel.cu", "nbodyax/physics/near_pallas.py:96",
+         b3_launches, b3_max_abs_err, bh_times["B3"]),
+        ("slot_pack_kernel", "slotpack_kernel.cu",
+         "nbodyax/physics/slotpack_pallas.py:99", b4_launches,
+         b4_max_abs_err, bh_times["B4"]),
+        ("slot_pack_moments_kernel", "slotpack_kernel.cu",
+         "nbodyax/physics/slotpack_pallas.py:123", b5_launches,
+         b5_max_abs_err, bh_times["B5"])]
     print(smi)
     print(json.dumps({"kernels": [{
-        "name": "pair_kernel", "route": "cuda",
-        "source": "nbodyax_torch/csrc/pair_kernel.cu",
-        "replaces": "nbodyax/physics/kernels.py:92",
-        "launches": launches, "max_abs_err": max_abs_err,
-        "ms": ms, "plain_ms": plain_ms}, {
-        "name": "pair_bwd_kernel", "route": "cuda",
-        "source": "nbodyax_torch/csrc/pair_bwd_kernel.cu",
-        "replaces": "nbodyax/physics/kernels_bwd.py:79",
-        "launches": bwd_launches, "max_abs_err": bwd_max_abs_err,
-        "ms": bwd_ms, "plain_ms": bwd_plain_ms}, {
-        "name": "near_kernel", "route": "cuda",
-        "source": "nbodyax_torch/csrc/near_kernel.cu",
-        "replaces": "nbodyax/physics/near_pallas.py:96",
-        "launches": b3_launches, "max_abs_err": b3_max_abs_err,
-        "ms": bh_times["B3"][0], "plain_ms": bh_times["B3"][1]}, {
-        "name": "slot_pack_kernel", "route": "cuda",
-        "source": "nbodyax_torch/csrc/slotpack_kernel.cu",
-        "replaces": "nbodyax/physics/slotpack_pallas.py:99",
-        "launches": b4_launches, "max_abs_err": b4_max_abs_err,
-        "ms": bh_times["B4"][0], "plain_ms": bh_times["B4"][1]}, {
-        "name": "slot_pack_moments_kernel", "route": "cuda",
-        "source": "nbodyax_torch/csrc/slotpack_kernel.cu",
-        "replaces": "nbodyax/physics/slotpack_pallas.py:123",
-        "launches": b5_launches, "max_abs_err": b5_max_abs_err,
-        "ms": bh_times["B5"][0], "plain_ms": bh_times["B5"][1]}]}))
+        "name": name, "route": "cuda", "source": f"nbodyax_torch/csrc/{src}",
+        "replaces": replaces, "launches": n_launch, "max_abs_err": err,
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
+        "bound_by": t["bound"][1], "library_ms": t["library_ms"]}
+        for name, src, replaces, n_launch, err, t in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -7,23 +7,41 @@
 // per-pair formulas are in nbodyax_torch/physics/kernels_bwd.py, whose
 // raw_backward_reference is the plain PyTorch version of this kernel.
 //
-// Inputs: rows f32[R, 8] and partners f32[C, 8] (body_features layout: x, y,
-// vx, vy, mass, radius, 0, 0), the raw-channel cotangent g f32[Ni, 8] of the
-// i bodies, and the global ids of row 0 of each side. Output f32[R, 8]: the
-// gradient of the row bodies' features (x, y, vx, vy, mass, radius, 0, 0).
-// SIDE selects which operand the rows are:
+// Inputs: the i bodies f32[Ni, 8] and the j bodies f32[Nj, 8]
+// (body_features layout: x, y, vx, vy, mass, radius, 0, 0), the raw-channel
+// cotangent g f32[Ni, 8] of the i bodies, and the global ids of row 0 of
+// each side. Outputs d_fi f32[Ni, 8] and d_fj f32[Nj, 8]: the gradients of
+// the features (x, y, vx, vy, mass, radius, 0, 0). Each output row sums over
+// every partner of the other side; which side a block computes is its
+// blockIdx.z:
 //
 //   side i: rows are the i bodies; each row's own cotangent stays in
 //           registers and the j partners stream through shared memory;
 //   side j: rows are the j bodies; the i partners stream through shared
 //           memory together with their cotangents.
 //
-// One backward call is two launches, one for each side.
+// What bounds it: FP32 work on the CUDA cores, about 29 flops and one rsqrt
+// a pair and side on the force path (the forward's distance and gates, the
+// cube, g.u, the 3 s (g.u)/d2e term, two gradient components, the sums),
+// twice that a pair for the two sides; each partner is read from device
+// memory once per block. No wgmma, for the forward's reason: distances are
+// computed subtract-first so that the gates round as the forward's do.
 //
-// Design: B1's. One thread owns one output row and walks every partner,
-// staged through shared memory one block-width tile at a time. Sums stay in
-// registers and are written once, with no atomics, so gradients repeat bit
-// for bit.
+// Design (the forward's, pair_kernel.cu; the partner split and the combine
+// are in pair_common.cuh and below):
+//
+// - One launch computes both sides: the grid is (row blocks) x (splits) x
+//   (side), each side with its own split count, so one call fills the card
+//   once. With one split a side writes its output; with more it writes
+//   f32[S, rows, 8] partials, and pair_bwd_combine Kahan-adds them in split
+//   order for every side that has them (a second launch). No atomics, so
+//   gradients repeat bit for bit.
+// - Each thread owns kRows rows; one float4 partner (x, y, m, r) from shared
+//   memory, a float2 velocity in elastic mode and, on side j, the float4 of
+//   the partner's cotangent (g0..g3) feed kRows pair chains.
+// - Position and mass gradients are summed plainly over kSub = 32 partners
+//   and Kahan-added into the row's total.
+// - rsqrt is the SFU's own (rsqrt_sfu in pair_common.cuh).
 //
 // Gates: the backward must leave out exactly the pairs the forward left out,
 // or a pair at the overlap threshold is gravity in one pass and contact in
@@ -32,37 +50,30 @@
 // p_j - p_i on both sides, as in the forward. Every pair is gated on
 // m_j > 0 and not-self by int32 global id; the force term also on
 // d2 + eps2 > 0 and, outside elastic mode, on not overlapping; the elastic
-// term on overlapping, approaching and d2 > 0.
-//
-// Summation: the position and mass gradients are sums over every partner,
-// taken with Kahan compensation as the forward's force is (a plain running
-// sum over 16,384 partners drifted 20x over the forward's gate). The
-// velocity and radius gradients sum over overlapping partners only. The
-// elastic terms use IEEE division (no -use_fast_math).
-//
-// What bounds it: FP32 ALU work, about 40 flops a pair with the compensated
-// sums and one rsqrt; nothing is read from device memory inside the partner
-// loop. Known limit, as for the forward: one thread per row leaves SMs idle
-// and too few warps on the busy ones at N = 16,384; splitting the partners
-// across blocks is later work.
+// term on overlapping, approaching and d2 > 0. The elastic terms use IEEE
+// division (no -use_fast_math).
 
-#include <cuda_runtime.h>
+#include <algorithm>
+
+#include "pair_common.cuh"
 
 namespace {
 
-constexpr int kFeats = 8;
-constexpr int kCh = 8;
-constexpr int kThreads = 128;
+using namespace nbodyax;
 
-enum Mode { kReference = 0, kMomentum = 1, kElastic = 2, kNone = 3 };
-enum Side { kSideI = 0, kSideJ = 1 };
+constexpr int kRows = 2;                      // rows a thread owns
+constexpr int kBlockRows = kThreads * kRows;
 
-__device__ __forceinline__ void kahan_add(float& s, float& c, float x) {
-  const float y = __fsub_rn(x, c);
-  const float t = __fadd_rn(s, y);
-  c = __fsub_rn(__fsub_rn(t, s), y);
-  s = t;
-}
+enum SideId { kSideI = 0, kSideJ = 1 };
+
+// One side of the call: its rows, its partners and where its sums go (the
+// output with one split, the partial buffer with more).
+struct Side {
+  const float* rows;
+  const float* cols;
+  float* dst;
+  int nr, nc, r_off, c_off, splits, chunk;
+};
 
 // Cotangent channels each mode reads: force (0-1) always; reference adds the
 // gained mass and radius (2-3) on side j; elastic adds the halved dv (2-3).
@@ -74,216 +85,292 @@ struct Uses {
 };
 
 template <int MODE, int SIDE>
-__global__ void __launch_bounds__(kThreads)
-pair_bwd_kernel(const float* __restrict__ rows, int nr,
-                const float* __restrict__ cols, int nc, int r_off, int c_off,
-                const float* __restrict__ g, float eps2, float growth,
-                float* __restrict__ out) {
+__device__ __forceinline__ void bwd_side(const Side& sd,
+                                         const float* __restrict__ g,
+                                         float eps2, float growth, float4* sp,
+                                         float2* sv, float4* sg) {
   using U = Uses<MODE, SIDE>;
   constexpr bool kRowsAreI = SIDE == kSideI;
-  __shared__ float sx[kThreads], sy[kThreads], sm[kThreads], sr[kThreads];
-  __shared__ float svx[U::kVel ? kThreads : 1], svy[U::kVel ? kThreads : 1];
-  // side j: the partners are the i bodies, whose cotangents stream too
-  __shared__ float sg0[kRowsAreI ? 1 : kThreads];
-  __shared__ float sg1[kRowsAreI ? 1 : kThreads];
-  __shared__ float sg2[!kRowsAreI && U::kG23 ? kThreads : 1];
-  __shared__ float sg3[!kRowsAreI && U::kG23 ? kThreads : 1];
-
-  const int row = blockIdx.x * kThreads + threadIdx.x;
-  const bool has_row = row < nr;
-  float xr = 0.f, yr = 0.f, vxr = 0.f, vyr = 0.f, mr = 0.f, rr = 0.f;
-  float g0 = 0.f, g1 = 0.f, g2 = 0.f, g3 = 0.f;   // side i: own cotangent
-  if (has_row) {
-    const float* f = rows + static_cast<long long>(row) * kFeats;
-    xr = f[0]; yr = f[1]; vxr = f[2]; vyr = f[3]; mr = f[4]; rr = f[5];
-    if constexpr (kRowsAreI) {
-      const float* gg = g + static_cast<long long>(row) * kCh;
-      g0 = gg[0]; g1 = gg[1];
-      if constexpr (U::kG23) { g2 = gg[2]; g3 = gg[3]; }
-    }
+  if (static_cast<int>(blockIdx.x) * kBlockRows >= sd.nr ||
+      static_cast<int>(blockIdx.y) >= sd.splits) {
+    return;                                   // the whole block: uniform
   }
-  const int gr = r_off + row;
+  float* dst = sd.dst + static_cast<long long>(blockIdx.y) * sd.nr * kFeats;
 
-  float px = 0.f, py = 0.f, pm = 0.f;      // Kahan sums: position, mass
-  float cpx = 0.f, cpy = 0.f, cpm = 0.f;   // and their compensations
-  float dvx = 0.f, dvy = 0.f, drad = 0.f;
-
-  for (int base = 0; base < nc; base += kThreads) {
-    const int k = base + threadIdx.x;
-    if (k < nc) {
-      const float* f = cols + static_cast<long long>(k) * kFeats;
-      sx[threadIdx.x] = f[0];
-      sy[threadIdx.x] = f[1];
-      sm[threadIdx.x] = f[4];
-      sr[threadIdx.x] = f[5];
-      if constexpr (U::kVel) {
-        svx[threadIdx.x] = f[2];
-        svy[threadIdx.x] = f[3];
+  const int row0 = blockIdx.x * kBlockRows + threadIdx.x;
+  float xr[kRows], yr[kRows], vxr[kRows], vyr[kRows], mr[kRows], rr[kRows];
+  float4 gr[kRows];                           // side i: own cotangent
+  int gid[kRows];
+  float px[kRows], py[kRows], pm[kRows];      // Kahan sums: position, mass
+  float cpx[kRows], cpy[kRows], cpm[kRows];   // and their compensations
+  float dvx[kRows], dvy[kRows], drad[kRows];
+#pragma unroll
+  for (int k = 0; k < kRows; ++k) {
+    const int row = row0 + k * kThreads;
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
+    gr[k] = a;
+    if (row < sd.nr) {
+      load_row(sd.rows + static_cast<long long>(row) * kFeats, a, b);
+      if constexpr (kRowsAreI) {
+        gr[k] = *reinterpret_cast<const float4*>(
+            g + static_cast<long long>(row) * kCh);
       }
+    }
+    xr[k] = a.x; yr[k] = a.y; vxr[k] = a.z; vyr[k] = a.w;
+    mr[k] = b.x; rr[k] = b.y;
+    gid[k] = sd.r_off + row;
+    px[k] = py[k] = pm[k] = cpx[k] = cpy[k] = cpm[k] = 0.f;
+    dvx[k] = dvy[k] = drad[k] = 0.f;
+  }
+
+  const int cb = blockIdx.y * sd.chunk;
+  const int ce = min(sd.nc, cb + sd.chunk);
+  for (int base = cb; base < ce; base += kTile) {
+    const int count = min(kTile, ce - base);
+    for (int t = threadIdx.x; t < count; t += kThreads) {
+      float4 a, b;
+      load_row(sd.cols + static_cast<long long>(base + t) * kFeats, a, b);
+      sp[t] = make_float4(a.x, a.y, b.x, b.y);
+      if constexpr (U::kVel) sv[t] = make_float2(a.z, a.w);
+      // side j: the partners are the i bodies, whose cotangents stream too
       if constexpr (!kRowsAreI) {
-        const float* gg = g + static_cast<long long>(k) * kCh;
-        sg0[threadIdx.x] = gg[0];
-        sg1[threadIdx.x] = gg[1];
-        if constexpr (U::kG23) {
-          sg2[threadIdx.x] = gg[2];
-          sg3[threadIdx.x] = gg[3];
-        }
+        sg[t] = *reinterpret_cast<const float4*>(
+            g + static_cast<long long>(base + t) * kCh);
       }
     }
     __syncthreads();
-    const int count = min(kThreads, nc - base);
+    for (int t0 = 0; t0 < count; t0 += kSub) {
+      const int t1 = min(count, t0 + kSub);
+      float sx[kRows], sy[kRows], sm[kRows];    // this sub-tile, plain
+#pragma unroll
+      for (int k = 0; k < kRows; ++k) sx[k] = sy[k] = sm[k] = 0.f;
 #pragma unroll 2
-    for (int t = 0; t < count; ++t) {
-      // the i and j bodies of this pair, whichever side the rows are
-      const float xi = kRowsAreI ? xr : sx[t];
-      const float yi = kRowsAreI ? yr : sy[t];
-      const float xj = kRowsAreI ? sx[t] : xr;
-      const float yj = kRowsAreI ? sy[t] : yr;
-      const float mi = kRowsAreI ? mr : sm[t];
-      const float mj = kRowsAreI ? sm[t] : mr;
-      const float ri = kRowsAreI ? rr : sr[t];
-      const float rj = kRowsAreI ? sr[t] : rr;
-      const int gi = kRowsAreI ? gr : c_off + base + t;
-      const int gj = kRowsAreI ? c_off + base + t : gr;
-      float h0 = g0, h1 = g1, h2 = g2, h3 = g3;     // cotangent of body i
-      if constexpr (!kRowsAreI) {
-        h0 = sg0[t]; h1 = sg1[t];
-        if constexpr (U::kG23) { h2 = sg2[t]; h3 = sg3[t]; }
-      }
+      for (int t = t0; t < t1; ++t) {
+        const float4 p = sp[t];
+        const int gc = sd.c_off + base + t;
+        float4 ph = make_float4(0.f, 0.f, 0.f, 0.f);
+        if constexpr (!kRowsAreI) ph = sg[t];
+        float2 pv = make_float2(0.f, 0.f);
+        if constexpr (U::kVel) pv = sv[t];
+#pragma unroll
+        for (int k = 0; k < kRows; ++k) {
+          // the i and j bodies of this pair, whichever side the rows are
+          const float xi = kRowsAreI ? xr[k] : p.x;
+          const float yi = kRowsAreI ? yr[k] : p.y;
+          const float xj = kRowsAreI ? p.x : xr[k];
+          const float yj = kRowsAreI ? p.y : yr[k];
+          const float mi = kRowsAreI ? mr[k] : p.z;
+          const float mj = kRowsAreI ? p.z : mr[k];
+          const float ri = kRowsAreI ? rr[k] : p.w;
+          const float rj = kRowsAreI ? p.w : rr[k];
+          const int gi = kRowsAreI ? gid[k] : gc;
+          const int gj = kRowsAreI ? gc : gid[k];
+          const float4 h = kRowsAreI ? gr[k] : ph;   // cotangent of body i
 
-      // the forward's roundings (pair_kernel.cu): u = p_j - p_i
-      const float ux = __fsub_rn(xj, xi);
-      const float uy = __fsub_rn(yj, yi);
-      const float d2 = __fadd_rn(__fmul_rn(ux, ux), __fmul_rn(uy, uy));
-      const float rsum = __fadd_rn(ri, rj);
-      const bool overlap = d2 <= __fmul_rn(rsum, rsum);
-      const bool live = mj > 0.f && gi != gj;
-      const float d2e = __fadd_rn(d2, eps2);
+          // the forward's roundings (pair_kernel.cu): u = p_j - p_i
+          const float ux = __fsub_rn(xj, xi);
+          const float uy = __fsub_rn(yj, yi);
+          const float d2 = __fadd_rn(__fmul_rn(ux, ux), __fmul_rn(uy, uy));
+          const float rsum = __fadd_rn(ri, rj);
+          const bool overlap = d2 <= __fmul_rn(rsum, rsum);
+          const bool live = mj > 0.f && gi != gj;
+          const float d2e = __fadd_rn(d2, eps2);
 
-      float ex = 0.f, ey = 0.f, em = 0.f;      // this pair's row gradient
-      const bool c = live && d2e > 0.f && (MODE == kElastic || !overlap);
-      if (c) {
-        const float inv = rsqrtf(d2e);
-        const float s = inv * inv * inv;
-        const float gdotu = h0 * ux + h1 * uy;
-        const float tt = 3.f * (inv * inv) * s * gdotu;
-        if constexpr (kRowsAreI) {
-          ex = mj * (tt * ux - s * h0);
-          ey = mj * (tt * uy - s * h1);
-        } else {
-          ex = mj * (s * h0 - tt * ux);
-          ey = mj * (s * h1 - tt * uy);
-          em = s * gdotu;
+          float ex = 0.f, ey = 0.f, em = 0.f;    // this pair's row gradient
+          const bool c = live && d2e > 0.f && (MODE == kElastic || !overlap);
+          if (c) {
+            const float inv = rsqrt_sfu(d2e);
+            const float s = inv * inv * inv;
+            const float gdotu = h.x * ux + h.y * uy;
+            const float tt = 3.f * (inv * inv) * s * gdotu;
+            if constexpr (kRowsAreI) {
+              ex = mj * (tt * ux - s * h.x);
+              ey = mj * (tt * uy - s * h.y);
+            } else {
+              ex = mj * (s * h.x - tt * ux);
+              ey = mj * (s * h.y - tt * uy);
+              em = s * gdotu;
+            }
+          }
+          if constexpr (U::kMergeG) {
+            if (overlap && live && mi >= mj) {
+              em += h.z;
+              drad[k] += growth * h.w;
+            }
+          }
+          if constexpr (MODE == kElastic) {
+            const float vxi = kRowsAreI ? vxr[k] : pv.x;
+            const float vyi = kRowsAreI ? vyr[k] : pv.y;
+            const float vxj = kRowsAreI ? pv.x : vxr[k];
+            const float vyj = kRowsAreI ? pv.y : vyr[k];
+            const float rvx = vxj - vxi;
+            const float rvy = vyj - vyi;
+            const float vdotp = __fadd_rn(__fmul_rn(rvx, ux),
+                                          __fmul_rn(rvy, uy));
+            if (overlap && live && vdotp < 0.f && d2 > 0.f) {
+              const float invd2 = 1.f / d2;
+              const float minv = 1.f / (mi + mj);
+              const float recip = minv * invd2;
+              const float q = vdotp * recip;
+              const float hdotu = h.z * ux + h.w * uy;
+              const float gq = hdotu * recip;
+              const float sgn = kRowsAreI ? -1.f : 1.f;
+              const float w = 2.f * vdotp * invd2;
+              ex += sgn * (mj * (gq * (rvx - w * ux) + q * h.z));
+              ey += sgn * (mj * (gq * (rvy - w * uy) + q * h.w));
+              dvx[k] += sgn * (mj * gq * ux);
+              dvy[k] += sgn * (mj * gq * uy);
+              em += sgn * (hdotu * q * minv * (kRowsAreI ? mj : mi));
+            }
+          }
+          sx[k] += ex;
+          sy[k] += ey;
+          if constexpr (!kRowsAreI || MODE == kElastic) sm[k] += em;
         }
       }
-      if constexpr (U::kMergeG) {
-        if (overlap && live && mi >= mj) {
-          em += h2;
-          drad += growth * h3;
+#pragma unroll
+      for (int k = 0; k < kRows; ++k) {
+        kahan_add(px[k], cpx[k], sx[k]);
+        kahan_add(py[k], cpy[k], sy[k]);
+        if constexpr (!kRowsAreI || MODE == kElastic) {
+          kahan_add(pm[k], cpm[k], sm[k]);
         }
       }
-      if constexpr (MODE == kElastic) {
-        const float vxi = kRowsAreI ? vxr : svx[t];
-        const float vyi = kRowsAreI ? vyr : svy[t];
-        const float vxj = kRowsAreI ? svx[t] : vxr;
-        const float vyj = kRowsAreI ? svy[t] : vyr;
-        const float rvx = vxj - vxi;
-        const float rvy = vyj - vyi;
-        const float vdotp = __fadd_rn(__fmul_rn(rvx, ux), __fmul_rn(rvy, uy));
-        if (overlap && live && vdotp < 0.f && d2 > 0.f) {
-          const float invd2 = 1.f / d2;
-          const float minv = 1.f / (mi + mj);
-          const float recip = minv * invd2;
-          const float q = vdotp * recip;
-          const float hdotu = h2 * ux + h3 * uy;
-          const float gq = hdotu * recip;
-          const float sgn = kRowsAreI ? -1.f : 1.f;
-          const float w = 2.f * vdotp * invd2;
-          ex += sgn * (mj * (gq * (rvx - w * ux) + q * h2));
-          ey += sgn * (mj * (gq * (rvy - w * uy) + q * h3));
-          dvx += sgn * (mj * gq * ux);
-          dvy += sgn * (mj * gq * uy);
-          em += sgn * (hdotu * q * minv * (kRowsAreI ? mj : mi));
-        }
-      }
-      kahan_add(px, cpx, ex);
-      kahan_add(py, cpy, ey);
-      if constexpr (!kRowsAreI || MODE == kElastic) kahan_add(pm, cpm, em);
     }
     __syncthreads();
   }
 
-  if (!has_row) return;
-  float* o = out + static_cast<long long>(row) * kFeats;
-  o[0] = px;
-  o[1] = py;
-  o[2] = dvx;
-  o[3] = dvy;
-  o[4] = pm;
-  o[5] = drad;
-  o[6] = 0.f;
-  o[7] = 0.f;
-}
-
-template <int MODE, int SIDE>
-void launch(const float* rows, int nr, const float* cols, int nc, int r_off,
-            int c_off, const float* g, float eps2, float growth, float* out,
-            cudaStream_t stream) {
-  const int blocks = (nr + kThreads - 1) / kThreads;
-  pair_bwd_kernel<MODE, SIDE><<<blocks, kThreads, 0, stream>>>(
-      rows, nr, cols, nc, r_off, c_off, g, eps2, growth, out);
+#pragma unroll
+  for (int k = 0; k < kRows; ++k) {
+    const int row = row0 + k * kThreads;
+    if (row >= sd.nr) continue;
+    store_row(dst + static_cast<long long>(row) * kFeats,
+              make_float4(px[k], py[k], dvx[k], dvy[k]),
+              make_float4(pm[k], drad[k], 0.f, 0.f));
+  }
 }
 
 template <int MODE>
-int launch_side(int side, const float* rows, int nr, const float* cols,
-                int nc, int r_off, int c_off, const float* g, float eps2,
-                float growth, float* out, cudaStream_t stream) {
-  if (side == kSideI) {
-    launch<MODE, kSideI>(rows, nr, cols, nc, r_off, c_off, g, eps2, growth,
-                         out, stream);
-  } else if (side == kSideJ) {
-    launch<MODE, kSideJ>(rows, nr, cols, nc, r_off, c_off, g, eps2, growth,
-                         out, stream);
+__global__ void __launch_bounds__(kThreads, 4)
+pair_bwd_kernel(Side si, Side sj, const float* __restrict__ g, float eps2,
+                float growth) {
+  __shared__ float4 sp[kTile];                            // x, y, m, r
+  __shared__ float2 sv[MODE == kElastic ? kTile : 1];     // vx, vy
+  __shared__ float4 sg[kTile];                            // side j: g0..g3
+  if (blockIdx.z == kSideI) {
+    bwd_side<MODE, kSideI>(si, g, eps2, growth, sp, sv, sg);
   } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    bwd_side<MODE, kSideJ>(sj, g, eps2, growth, sp, sv, sg);
   }
-  return 0;
+}
+
+// Reduces the partials of each side that has more than one split, in split
+// order, one thread a row: rows [0, ni) of side i, then [ni, ni + nj) of
+// side j (ni or nj is 0 for a side written directly).
+__global__ void __launch_bounds__(kThreads)
+pair_bwd_combine(const float* __restrict__ part_i, int ni, int splits_i,
+                 float* __restrict__ out_i, const float* __restrict__ part_j,
+                 int nj, int splits_j, float* __restrict__ out_j) {
+  int row = blockIdx.x * kThreads + threadIdx.x;
+  const float* part = part_i;
+  float* out = out_i;
+  int n = ni, splits = splits_i;
+  if (row >= ni) {
+    row -= ni;
+    part = part_j;
+    out = out_j;
+    n = nj;
+    splits = splits_j;
+    if (row >= nj) return;
+  }
+  float s[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  float c[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  for (int sp = 0; sp < splits; ++sp) {
+    float4 a, b;
+    load_row(part + (static_cast<long long>(sp) * n + row) * kFeats, a, b);
+    kahan_add(s[0], c[0], a.x);
+    kahan_add(s[1], c[1], a.y);
+    kahan_add(s[2], c[2], a.z);
+    kahan_add(s[3], c[3], a.w);
+    kahan_add(s[4], c[4], b.x);
+    kahan_add(s[5], c[5], b.y);
+  }
+  store_row(out + static_cast<long long>(row) * kFeats,
+            make_float4(s[0], s[1], s[2], s[3]),
+            make_float4(s[4], s[5], 0.f, 0.f));
+}
+
+template <int MODE>
+int blocks_per_sm() {
+  int n = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, pair_bwd_kernel<MODE>,
+                                                kThreads, 0);
+  return n;
 }
 
 }  // namespace
 
-// Plain C entry point for ctypes: one side of the backward pass. side 0: the
-// rows are the i bodies (g has nr rows); side 1: the rows are the j bodies
-// (g has nc rows). Returns cudaGetLastError() after the launch (0 on
-// success); an unknown mode or side returns cudaErrorInvalidValue.
+// The pass kernel's launch shape for ctypes: how many of its blocks one SM
+// holds at once in `mode` (occupancy API, current device) and how many rows
+// a block owns. The wrapper picks each side's splits from these.
+extern "C" int nbodyax_pair_backward_launch_shape(int mode, int* blocks,
+                                                  int* rows) {
+  switch (mode) {
+    case kReference: *blocks = blocks_per_sm<kReference>(); break;
+    case kMomentum: *blocks = blocks_per_sm<kMomentum>(); break;
+    case kElastic: *blocks = blocks_per_sm<kElastic>(); break;
+    case kNone: *blocks = blocks_per_sm<kNone>(); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  *rows = kBlockRows;
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Plain C entry point for ctypes: both sides of the backward pass. Side i's
+// rows are fi (ni of them, with g's rows), side j's are fj. A side with
+// more than one split needs its partial buffer (f32[splits, rows, 8]),
+// which the caller allocates; a second launch then combines. Returns
+// cudaGetLastError() after the launches (0 on success); an unknown mode or
+// a split count below 1 returns cudaErrorInvalidValue.
 extern "C" int nbodyax_pair_backward(
-    const float* rows, int nr, const float* cols, int nc, int r_off,
-    int c_off, const float* g, int mode, int side, float eps2, float growth,
-    float* out, void* stream) {
+    const float* fi, int ni, const float* fj, int nj, int i_off, int j_off,
+    const float* g, int mode, float eps2, float growth, int splits_i,
+    int splits_j, float* part_i, float* part_j, float* d_fi, float* d_fj,
+    void* stream) {
+  if (splits_i < 1 || splits_j < 1 || mode < kReference || mode > kNone) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (ni == 0 && nj == 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (nr > 0) {
-    int bad = 0;
-    switch (mode) {
-      case kReference:
-        bad = launch_side<kReference>(side, rows, nr, cols, nc, r_off, c_off,
-                                      g, eps2, growth, out, s);
-        break;
-      case kMomentum:
-        bad = launch_side<kMomentum>(side, rows, nr, cols, nc, r_off, c_off,
-                                     g, eps2, growth, out, s);
-        break;
-      case kElastic:
-        bad = launch_side<kElastic>(side, rows, nr, cols, nc, r_off, c_off,
-                                    g, eps2, growth, out, s);
-        break;
-      case kNone:
-        bad = launch_side<kNone>(side, rows, nr, cols, nc, r_off, c_off, g,
-                                 eps2, growth, out, s);
-        break;
-      default:
-        return static_cast<int>(cudaErrorInvalidValue);
-    }
-    if (bad != 0) return bad;
+  const Side si{fi, fj, splits_i > 1 ? part_i : d_fi, ni, nj, i_off, j_off,
+                splits_i, split_chunk(nj, splits_i)};
+  const Side sj{fj, fi, splits_j > 1 ? part_j : d_fj, nj, ni, j_off, i_off,
+                splits_j, split_chunk(ni, splits_j)};
+  const dim3 grid((std::max(ni, nj) + kBlockRows - 1) / kBlockRows,
+                  std::max(splits_i, splits_j), 2);
+  switch (mode) {
+    case kReference:
+      pair_bwd_kernel<kReference><<<grid, kThreads, 0, s>>>(si, sj, g, eps2,
+                                                            growth);
+      break;
+    case kMomentum:
+      pair_bwd_kernel<kMomentum><<<grid, kThreads, 0, s>>>(si, sj, g, eps2,
+                                                           growth);
+      break;
+    case kElastic:
+      pair_bwd_kernel<kElastic><<<grid, kThreads, 0, s>>>(si, sj, g, eps2,
+                                                          growth);
+      break;
+    default:
+      pair_bwd_kernel<kNone><<<grid, kThreads, 0, s>>>(si, sj, g, eps2,
+                                                       growth);
+      break;
+  }
+  const int ci = splits_i > 1 ? ni : 0;
+  const int cj = splits_j > 1 ? nj : 0;
+  if (ci + cj > 0) {
+    pair_bwd_combine<<<(ci + cj + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+        part_i, ci, splits_i, d_fi, part_j, cj, splits_j, d_fj);
   }
   return static_cast<int>(cudaGetLastError());
 }

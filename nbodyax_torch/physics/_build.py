@@ -4,11 +4,13 @@
 library with a plain C interface, loaded with ``ctypes``: ``pair_kernel.cu``
 (the all-pairs forward pass), ``pair_bwd_kernel.cu`` (its analytic
 backward pass), ``near_kernel.cu`` (the bh near field) and
-``slotpack_kernel.cu`` (the bh slot-grid pack and finest moments). The
-libraries are built at first use into ``build/nbodyax_torch/`` beside the
-package, one ``nvcc`` a source, all started together, and keyed by a hash
-of every source and the flags, so an edited source rebuilds and unchanged
-ones load in milliseconds. Nothing is compiled at import.
+``slotpack_kernel.cu`` (the bh slot-grid pack and finest moments); the two
+all-pairs sources share ``pair_common.cuh``. The libraries are built at
+first use into ``build/nbodyax_torch/`` beside the package, one ``nvcc`` a
+source, all started together, and keyed by a hash of every source, header
+and flag, so an edit rebuilds and unchanged ones load in milliseconds.
+Each build leaves ``ptxas``'s report (registers, spills) beside its
+library as ``<name>_<key>.log``. Nothing is compiled at import.
 """
 
 from __future__ import annotations
@@ -23,18 +25,20 @@ import threading
 from pathlib import Path
 from types import SimpleNamespace
 
-__all__ = ["load_library", "SOURCES", "BUILD_DIR"]
+__all__ = ["load_library", "build_log", "SOURCES", "BUILD_DIR"]
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(_PKG / "csrc" / name for name in (
     "pair_kernel.cu", "pair_bwd_kernel.cu", "near_kernel.cu",
     "slotpack_kernel.cu"))
+HEADERS = (_PKG / "csrc" / "pair_common.cuh",)
 BUILD_DIR = _PKG.parent / "build" / "nbodyax_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib = None
+_key = None
 
 
 def _nvcc() -> str:
@@ -50,12 +54,15 @@ def _nvcc() -> str:
 def _bind(fwd: ctypes.CDLL, bwd: ctypes.CDLL, near: ctypes.CDLL,
           pack: ctypes.CDLL) -> SimpleNamespace:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    ip = ctypes.POINTER(ctypes.c_int)
     fns = {}
     for lib, name, args in (
             (fwd, "nbodyax_pair_accumulators",
-             [p, i, p, i, i, i, i, f, f, p, p, p]),
+             [p, i, p, i, i, i, i, f, f, i, p, p, p, p, p]),
+            (fwd, "nbodyax_pair_launch_shape", [i, ip, ip]),
             (bwd, "nbodyax_pair_backward",
-             [p, i, p, i, i, i, p, i, i, f, f, p, p]),
+             [p, i, p, i, i, i, p, i, f, f, i, i, p, p, p, p, p]),
+            (bwd, "nbodyax_pair_backward_launch_shape", [i, ip, ip]),
             (near, "nbodyax_slots_near", [p, i, i, i, i, i, i, f, f, p, p]),
             (pack, "nbodyax_slot_pack", [p, i, p, p, i, i, p, p]),
             (pack, "nbodyax_slot_pack_moments",
@@ -87,6 +94,7 @@ def _build_all(targets) -> None:
                 failed.append(f"nvcc failed ({proc.returncode}) on {src}:\n"
                               f"{out}")
             else:
+                so.with_suffix(".log").write_text(out)
                 os.replace(tmp, so)
         if failed:
             raise RuntimeError("\n".join(failed))
@@ -106,10 +114,11 @@ def load_library() -> SimpleNamespace:
     with _lock:
         if _lib is not None:
             return _lib
+        global _key
         h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for src in SOURCES:
+        for src in SOURCES + HEADERS:
             h.update(src.read_bytes())
-        key = h.hexdigest()[:16]
+        key = _key = h.hexdigest()[:16]
         targets = [(src, BUILD_DIR / f"{src.stem}_{key}.so")
                    for src in SOURCES]
         missing = [(src, so) for src, so in targets if not so.exists()]
@@ -118,3 +127,13 @@ def load_library() -> SimpleNamespace:
             _build_all(missing)
         _lib = _bind(*(ctypes.CDLL(str(so)) for _, so in targets))
         return _lib
+
+
+def build_log(source: str) -> str | None:
+    """``nvcc``'s output (with ``ptxas``'s register and spill report) for
+    the library of ``source`` (e.g. "pair_kernel.cu") that load_library
+    loaded, or None if that library was built by another process."""
+    if _key is None:
+        return None
+    log = BUILD_DIR / f"{Path(source).stem}_{_key}.log"
+    return log.read_text() if log.exists() else None

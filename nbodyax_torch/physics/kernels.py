@@ -18,7 +18,10 @@ them. The kernel is 2-D only.
 
 ``tile_accumulators_raw`` launches the kernel for CUDA tensors and runs
 ``tile_accumulators_raw_reference`` for CPU tensors. ``launches`` counts
-kernel launches, so a run can show it went through the kernel.
+kernel calls, one a forward call, so a run can show it went through the
+kernel. The kernel splits the partners across blocks when the rows alone
+would not fill the card (``choose_splits``); a call is then two CUDA
+launches, the pass and the combine of its partials.
 
 Reverse mode: ``tile_accumulators_raw`` is a ``torch.autograd.Function``
 (the counterpart of the ``jax.custom_vjp`` of ``nbodyax``'s kernel). Its
@@ -32,6 +35,9 @@ non-zero derivatives where the oracle's are finite or zero.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import numpy as np
 import torch
 
@@ -39,13 +45,15 @@ from nbodyax_torch.physics.pairwise import PairAccumulators, squared_distance
 
 __all__ = ["body_features", "tile_accumulators_raw",
            "tile_accumulators_raw_reference", "decode_raw",
-           "pair_accumulators_kernel", "NUM_FEATS", "NUM_CH", "MODES"]
+           "pair_accumulators_kernel", "choose_splits", "forward_splits",
+           "NUM_FEATS", "NUM_CH", "MODES"]
 
 NUM_FEATS = 8
 NUM_CH = 8
 MODES = ("reference", "momentum", "elastic", "none")
 _NEG_INF = float(np.finfo(np.float32).min)   # "no candidate" best mass
 _I32_MAX = int(np.iinfo(np.int32).max)       # "no candidate" parent
+MIN_SPLIT_PARTNERS = 256   # one shared-memory tile of partners (kTile)
 
 
 def body_features(pos, vel, mass, radius) -> torch.Tensor:
@@ -149,27 +157,91 @@ class _PairRaw(torch.autograd.Function):
         return d_fi, d_fj, None, None, None, None, None
 
 
-def _launch(feats_i, feats_j, i_offset: int, j_offset: int, *, mode: str,
-            eps: float, growth_rate: float):
-    """Launch the CUDA kernel on CUDA tensors; counts the launch."""
+def choose_splits(row_blocks: int, partners: int, slots: int) -> int:
+    """How many blocks to split the partners of each row block across.
+
+    ``row_blocks`` is the number of row blocks of the call (over both
+    sides for the backward pass), ``partners`` the partners a row walks and
+    ``slots`` the blocks the card holds at once (SMs times blocks an SM).
+    The splits fill one wave of the card, each keeps at least
+    ``MIN_SPLIT_PARTNERS`` partners, and rows that fill the card alone get
+    one split.
+    """
+    if row_blocks <= 0 or partners <= 0:
+        return 1
+    return max(1, min(slots // row_blocks, partners // MIN_SPLIT_PARTNERS))
+
+
+@functools.lru_cache(maxsize=None)
+def launch_shape(kernel: str, mode: str, index: int) -> tuple[int, int]:
+    """``(slots, block_rows)`` of the pass kernel ``kernel`` ("forward" or
+    "backward") in ``mode`` on CUDA card ``index``: how many of its blocks
+    the card holds at once (SMs times the occupancy API's blocks an SM) and
+    how many rows a block owns."""
     from nbodyax_torch.physics._build import load_library
     lib = load_library()
-    fi, fj = feats_i.contiguous(), feats_j.contiguous()
+    fn = {"forward": lib.nbodyax_pair_launch_shape,
+          "backward": lib.nbodyax_pair_backward_launch_shape}[kernel]
+    blocks, rows = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(index):
+        err = fn(MODES.index(mode), ctypes.byref(blocks), ctypes.byref(rows))
+    if err != 0 or blocks.value < 1:
+        raise RuntimeError(f"{kernel} pair kernel: no launch shape for mode "
+                           f"{mode} (CUDA error {err}, {blocks.value} blocks "
+                           f"an SM)")
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return sms * blocks.value, rows.value
+
+
+def _index(dev: torch.device) -> int:
+    return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
+def forward_splits(ni: int, nj: int, mode: str, dev) -> int:
+    """The partner splits the forward kernel uses for Ni rows against Nj
+    partners on CUDA device ``dev``."""
+    slots, rows = launch_shape("forward", mode, _index(torch.device(dev)))
+    return choose_splits(-(-ni // rows), nj, slots)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """Contiguous and 16-byte aligned, as the kernels' float4 loads need."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _launch(feats_i, feats_j, i_offset: int, j_offset: int, *, mode: str,
+            eps: float, growth_rate: float):
+    """Launch the CUDA kernel on CUDA tensors; counts the call."""
+    from nbodyax_torch.physics._build import load_library
+    lib = load_library()
+    fi, fj = _aligned(feats_i), _aligned(feats_j)
     ni, nj = fi.shape[0], fj.shape[0]
     i_offset, j_offset = int(i_offset), int(j_offset)
     if min(i_offset, j_offset) < 0 or max(i_offset + ni,
                                           j_offset + nj) > _I32_MAX:
         raise ValueError("body ids must be non-negative and fit in int32")
-    raw = torch.empty((ni, NUM_CH), dtype=torch.float32, device=fi.device)
-    parent = (torch.empty((ni,), dtype=torch.int32, device=fi.device)
+    dev = fi.device
+    raw = torch.empty((ni, NUM_CH), dtype=torch.float32, device=dev)
+    parent = (torch.empty((ni,), dtype=torch.int32, device=dev)
               if mode == "momentum" else None)
-    with torch.cuda.device(fi.device):
-        stream = torch.cuda.current_stream(fi.device).cuda_stream
+    splits = forward_splits(ni, nj, mode, dev)
+    part = ppart = None
+    if splits > 1:
+        part = torch.empty((splits, ni, NUM_CH), dtype=torch.float32,
+                           device=dev)
+        if mode == "momentum":
+            ppart = torch.empty((splits, ni), dtype=torch.int32, device=dev)
+
+    def ptr(t):
+        return t.data_ptr() if t is not None else None
+
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.nbodyax_pair_accumulators(
             fi.data_ptr(), ni, fj.data_ptr(), nj, i_offset, j_offset,
-            MODES.index(mode), _eps2(eps), _float32(growth_rate),
-            raw.data_ptr(),
-            parent.data_ptr() if parent is not None else None, stream)
+            MODES.index(mode), _eps2(eps), _float32(growth_rate), splits,
+            ptr(part), ptr(ppart), raw.data_ptr(), ptr(parent), stream)
     if err != 0:
         raise RuntimeError(f"pair kernel launch failed: CUDA error {err}")
     tile_accumulators_raw.launches += 1

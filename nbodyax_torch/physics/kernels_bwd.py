@@ -38,22 +38,24 @@ of each merge: dL/dm_j += g_gm_i, dL/dr_j += growth g_gr_i. The died count
 and the momentum parent carry no gradient. The momentum best-mass
 cotangent goes to the mass of the saved parent, outside the kernel.
 
-``raw_backward`` launches the kernel for CUDA tensors (twice: once with the
-i bodies as output rows, once with the j bodies) and runs
+``raw_backward`` runs the kernel for CUDA tensors, both sides (the i
+bodies as output rows, and the j bodies) in one grid, and
 ``raw_backward_reference`` for CPU tensors. ``raw_backward.launches``
-counts kernel launches.
+counts one a side computed, two a call. A side whose rows alone would not
+fill the card splits its partners across blocks (``backward_splits``); the
+call is then two CUDA launches, the pass and the combine of the partials.
 """
 
 from __future__ import annotations
 
 import torch
 
-from nbodyax_torch.physics.kernels import (_I32_MAX, MODES, _check_inputs,
-                                           _eps2, _float32)
+from nbodyax_torch.physics.kernels import (_I32_MAX, MODES, _aligned,
+                                           _check_inputs, _eps2, _float32,
+                                           _index, choose_splits,
+                                           launch_shape)
 
-__all__ = ["raw_backward", "raw_backward_reference"]
-
-_SIDES = ("i", "j")
+__all__ = ["raw_backward", "raw_backward_reference", "backward_splits"]
 
 
 def _check(feats_i, feats_j, g_raw, mode):
@@ -187,8 +189,8 @@ def raw_backward(feats_i: torch.Tensor, feats_j: torch.Tensor, i_offset: int,
     the forward's momentum-mode i32[Ni] (None otherwise). Returns
     ``(d_feats_i f32[Ni, 8], d_feats_j f32[Nj, 8])``.
 
-    A CUDA tensor goes to the hand-written kernel, one launch for each
-    side; a CPU tensor goes to ``raw_backward_reference``.
+    A CUDA tensor goes to the hand-written kernel, both sides in one grid;
+    a CPU tensor goes to ``raw_backward_reference``.
     """
     _check(feats_i, feats_j, g_raw, mode)
     if feats_i.device.type == "cpu":
@@ -199,31 +201,46 @@ def raw_backward(feats_i: torch.Tensor, feats_j: torch.Tensor, i_offset: int,
         raise ValueError(f"no backward kernel for device {feats_i.device}")
     from nbodyax_torch.physics._build import load_library
     lib = load_library()
-    fi, fj, g = feats_i.contiguous(), feats_j.contiguous(), g_raw.contiguous()
+    fi, fj, g = _aligned(feats_i), _aligned(feats_j), _aligned(g_raw)
     ni, nj = fi.shape[0], fj.shape[0]
     i_offset, j_offset = int(i_offset), int(j_offset)
     if min(i_offset, j_offset) < 0 or max(i_offset + ni,
                                           j_offset + nj) > _I32_MAX:
         raise ValueError("body ids must be non-negative and fit in int32")
+    dev = fi.device
     d_fi = torch.empty_like(fi)
     d_fj = torch.empty_like(fj)
-    with torch.cuda.device(fi.device):
-        stream = torch.cuda.current_stream(fi.device).cuda_stream
-        for side, (rows, nr, r_off, cols, nc, c_off, out) in enumerate((
-                (fi, ni, i_offset, fj, nj, j_offset, d_fi),
-                (fj, nj, j_offset, fi, ni, i_offset, d_fj))):
-            err = lib.nbodyax_pair_backward(
-                rows.data_ptr(), nr, cols.data_ptr(), nc, r_off, c_off,
-                g.data_ptr(), MODES.index(mode), side, _eps2(eps),
-                _float32(growth_rate), out.data_ptr(), stream)
-            if err != 0:
-                raise RuntimeError(f"pair backward kernel (side "
-                                   f"{_SIDES[side]}) launch failed: CUDA "
-                                   f"error {err}")
-            raw_backward.launches += 1
+    s_i, s_j = backward_splits(ni, nj, mode, dev)
+    part_i = (torch.empty((s_i, ni, 8), dtype=torch.float32, device=dev)
+              if s_i > 1 else None)
+    part_j = (torch.empty((s_j, nj, 8), dtype=torch.float32, device=dev)
+              if s_j > 1 else None)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.nbodyax_pair_backward(
+            fi.data_ptr(), ni, fj.data_ptr(), nj, i_offset, j_offset,
+            g.data_ptr(), MODES.index(mode), _eps2(eps),
+            _float32(growth_rate), s_i, s_j,
+            part_i.data_ptr() if part_i is not None else None,
+            part_j.data_ptr() if part_j is not None else None,
+            d_fi.data_ptr(), d_fj.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"pair backward kernel launch failed: CUDA error "
+                           f"{err}")
+    raw_backward.launches += 2
     if mode == "momentum" and parent is not None:
         _route_best_mass(d_fj, parent, g, j_offset)
     return d_fi, d_fj
 
 
 raw_backward.launches = 0
+
+
+def backward_splits(ni: int, nj: int, mode: str, dev) -> tuple[int, int]:
+    """The partner splits ``(side i, side j)`` the backward kernel uses for
+    Ni i bodies against Nj j bodies on CUDA device ``dev``: both sides'
+    row blocks share the card."""
+    slots, rows = launch_shape("backward", mode, _index(torch.device(dev)))
+    blocks = -(-ni // rows) + -(-nj // rows)
+    return (choose_splits(blocks, nj, slots),
+            choose_splits(blocks, ni, slots))

@@ -115,6 +115,84 @@ def test_deterministic_and_counted(cuda):
     assert kernels.tile_accumulators_raw.launches == before + 2
 
 
+# Partner splits: the kernels split the partners of a row block across
+# blocks when the rows alone do not fill the card; at N = 16,384 on an H100
+# the split is active. These calls cover lopsided shapes, a partner count
+# that is no multiple of the 256-partner tile, ties across split boundaries,
+# ids past 2^24 and bitwise repeats.
+
+BIG = 16384
+SHAPES = [(1, BIG), (129, BIG), (BIG, 1), (BIG, 130), (300, 5000 + 77)]
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("ni,nj", SHAPES)
+def test_kernel_lopsided_and_ragged_calls(cuda, mode, ni, nj):
+    feats, mass = random_feats(BIG, 11, cuda)
+    kw = dict(mode=mode, eps=0.0, growth_rate=0.1)
+    fi, fj = feats[:ni], feats[:nj]
+    rk, pk = kernels.tile_accumulators_raw(fi, fj, 0, 0, **kw)
+    rp, pp = kernels.tile_accumulators_raw_reference(fi, fj, 0, 0, **kw)
+    assert_equivalent(kernels.decode_raw(rk, pk, 0, mass[:ni], mode),
+                      kernels.decode_raw(rp, pp, 0, mass[:ni], mode), mode)
+
+
+def split_chunk(n, splits):
+    """Partners a split walks: ceil(n / splits) rounded up to 32, as
+    csrc/pair_common.cuh's split_chunk."""
+    c = -(-n // splits)
+    return -(-c // 32) * 32
+
+
+def tie_state(n, dev, chunk):
+    """Body 0 overlapped by equal-mass bodies that beat it, on both sides
+    of the split boundaries at ``chunk`` and ``2 * chunk``, and elsewhere
+    far apart."""
+    rng = np.random.RandomState(4)
+    pos = rng.uniform(-1e6, 1e6, (n, 2)).astype(np.float32)
+    vel = np.zeros((n, 2), np.float32)
+    mass = rng.uniform(1, 100, n).astype(np.float32)
+    radius = np.full(n, 1.0, np.float32)
+    ties = [c for c in (chunk - 1, chunk, 2 * chunk + 5) if 0 < c < n]
+    pos[[0] + ties] = 0.0
+    mass[0] = 50.0
+    mass[ties] = 500.0
+    t = [torch.from_numpy(x).to(dev) for x in (pos, vel, mass, radius)]
+    return kernels.body_features(*t), t[2], ties
+
+
+def test_momentum_tie_across_splits(cuda):
+    splits = kernels.forward_splits(BIG, BIG, "momentum", cuda)
+    assert splits > 1
+    chunk = split_chunk(BIG, splits)
+    feats, mass, ties = tie_state(BIG, cuda, chunk)
+    a, b = both(feats, mass, "momentum")
+    assert_equivalent(a, b, "momentum")
+    assert int(a.parent[0]) == min(ties) == int(b.parent[0])
+    # the tied bodies beat each other by id: each takes the lowest tie
+    assert int(a.parent[max(ties)]) == min(ties)
+
+
+@pytest.mark.parametrize("mode", ["reference", "momentum"])
+def test_large_offsets_with_splits(cuda, mode):
+    """Ids past 2^24 at a size where the partners are split."""
+    base = (1 << 30) + 3
+    assert kernels.forward_splits(BIG, BIG, mode, cuda) > 1
+    feats, mass = random_feats(BIG, 6, cuda)
+    a, b = both(feats, mass, mode, i0=base, j0=base)
+    assert_equivalent(a, b, mode)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_split_kernel_repeats_bitwise(cuda, mode):
+    feats, _ = random_feats(BIG, 3, cuda)
+    kw = dict(mode=mode, eps=0.0, growth_rate=0.1)
+    r1, p1 = kernels.tile_accumulators_raw(feats, feats, 0, 0, **kw)
+    r2, p2 = kernels.tile_accumulators_raw(feats, feats, 0, 0, **kw)
+    assert torch.equal(r1, r2)
+    assert (p1 is None and p2 is None) or torch.equal(p1, p2)
+
+
 def test_softening(cuda):
     feats, mass = random_feats(500, 2, cuda)
     kw = dict(mode="elastic", eps=25.0, growth_rate=0.1)
@@ -193,6 +271,44 @@ def test_backward_deterministic_and_counted(cuda):
     b = kernels_bwd.raw_backward(feats, feats, 0, 0, None, g, **kw)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
     assert kernels_bwd.raw_backward.launches == before + 4
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("ni,nj", SHAPES)
+def test_backward_lopsided_and_ragged_calls(cuda, mode, ni, nj):
+    feats, _ = random_feats(BIG, 12, cuda)
+    got, want = bwd_both(feats[:ni], feats[:nj], 0, 0,
+                         cotangent(ni, 12, cuda), mode)
+    assert_bwd_close(got, want)
+
+
+@pytest.mark.parametrize("mode", ["reference", "momentum"])
+def test_backward_large_offsets_with_splits(cuda, mode):
+    base = (1 << 30) + 3
+    assert max(kernels_bwd.backward_splits(BIG, BIG, mode, cuda)) > 1
+    feats, _ = random_feats(BIG, 7, cuda)
+    got, want = bwd_both(feats, feats, base, base, cotangent(BIG, 7, cuda),
+                         mode)
+    assert_bwd_close(got, want)
+
+
+def test_backward_momentum_tie_across_splits(cuda):
+    splits = kernels.forward_splits(BIG, BIG, "momentum", cuda)
+    chunk = split_chunk(BIG, splits)
+    feats, _, _ = tie_state(BIG, cuda, chunk)
+    got, want = bwd_both(feats, feats, 0, 0, cotangent(BIG, 8, cuda),
+                         "momentum")
+    assert_bwd_close(got, want)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_backward_split_repeats_bitwise(cuda, mode):
+    feats, _ = random_feats(BIG, 3, cuda)
+    g = cotangent(BIG, 3, cuda)
+    kw = dict(mode=mode, eps=0.0, growth_rate=0.1)
+    a = kernels_bwd.raw_backward(feats, feats, 0, 0, None, g, **kw)
+    b = kernels_bwd.raw_backward(feats, feats, 0, 0, None, g, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 @pytest.mark.parametrize("mode", MODES)
