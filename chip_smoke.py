@@ -87,8 +87,8 @@ FRAME_EVERY = 10
 BWD_GATE = 3e-6     # tests/test_autodiff.py:201, of the largest component
 GRAD_GATE = 1e-5    # rollout gradient, kernel path against the oracle path
 FORCE_GATE = 3e-7   # B1's force against its plain version, of the largest
-# Peak rates of one H100 SXM at its 700 W limit (the on-chip-measurement
-# guide: NVIDIA's data sheet): FP32 outside the tensor cores, HBM3.
+# Peak rates of one H100 SXM at its 700 W limit (NVIDIA's data sheet):
+# FP32 outside the tensor cores, HBM3.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 # FP32 flops a pair (rsqrt counted as one), as the kernels' source notes
