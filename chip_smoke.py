@@ -9,7 +9,7 @@ Phases, each of which exits non-zero on failure:
 
 1. print the card's name and power limit; build the four CUDA sources of
    ``nbodyax_torch/csrc`` (one ``nvcc`` a source, in parallel) and print the
-   build time and ptxas's registers and spills of the all-pairs kernels;
+   build time and ptxas's registers and spills of every kernel;
 2. compare the all-pairs kernel with its plain PyTorch version on the card,
    in all four collision modes, at N = 300 (random, dense overlaps) and at
    N = 16,384 (the default scene), each with a dead slot, plus offset calls
@@ -25,7 +25,8 @@ Phases, each of which exits non-zero on failure:
    check the 20 P5 frames, the log and that every step launched the kernel;
 5. time the kernel against its plain version at N = 16,384 and alone at
    N = 131,072, with the splits chosen, the CUDA launches a call, pairs/s,
-   the share of the bound and the SM clock under load; profile one
+   the share of the bound and the SM clock under load; its own device time
+   by the profiler beside the wrapper call's CUDA-event time; profile one
    default-scene step;
 6. compare the backward kernel with its plain version on the same inputs
    as phase 2, in all four modes at eps = 0 and in elastic mode at eps = 5,
@@ -41,8 +42,8 @@ Phases, each of which exits non-zero on failure:
 9. ``nbodyax_torch.cli`` with ``integrator=leapfrog`` for 20 steps, two
    forward launches a step;
 10. time the backward kernel against its plain version at N = 16,384 and
-    alone at N = 131,072 (as phase 5), one gradient step against one
-    forward step, and profile one gradient call;
+    alone at N = 131,072 (as phase 5, device time too), one gradient step
+    against one forward step, and profile one gradient call;
 11. ``forceModel=bh``'s slot-pack kernels (B5, and B4 without moments)
     against their plain versions on examples/million_bodies.txt's scene
     (N = 1,048,576) and on a crowded state: rows bitwise, moments at 2e-6;
@@ -57,12 +58,17 @@ Phases, each of which exits non-zero on failure:
     picked, ``bh_overflow`` 0, B3 and B5 once a step;
 15. ``bhFar=direct bhOrder=1`` on the CLI at N = 65,536: B4 once a step;
 16. B3, B4 and B5 timed against their plain versions at N = 1M (B4 also
-    against one gather), with bounds from the run's cell occupancy, one bh
-    step, and one step's profiler breakdown and device idle share.
+    against one gather), with bounds from the run's cell occupancy and
+    each kernel's own device time; B4 and B5 by device time on the crowded
+    N = 262,144 state and on a uniform state of the same N (the crowded
+    cell's tail); one bh step (CUDA-event span, host wall of 5 steps), and
+    one step's profiler breakdown and device idle share.
 
-The line before the last is a JSON object describing each kernel (its
-time, its plain version's, its bound against the H100's peak FP32 rate or
-memory rate, and one PyTorch call's time where there is one); the last
+The line before the last is a JSON object describing each kernel (the
+wrapper call's CUDA-event time ``ms``, the kernel's own device time by
+the profiler ``device_ms``, its plain version's time, its bound against
+the H100's peak FP32 rate or memory rate, and one PyTorch call's time
+where there is one); the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside
 a checkout, it exits non-zero and prints no result.
 """
@@ -96,6 +102,11 @@ PEAK_BYTES_PER_S = 3.35e12
 B1_FLOPS_PER_PAIR = 18
 B2_FLOPS_PER_PAIR_SIDE = 29
 B3_FLOPS_PER_PAIR = 18
+# names of each kernel's own launches in a profiler trace
+B1_TAGS = ("pair_kernel<", "pair_combine")
+B2_TAGS = ("pair_bwd_kernel", "pair_bwd_combine")
+B3_TAGS = ("near_kernel",)
+PACK_TAGS = ("slot_pack",)
 
 
 def fail(msg: str) -> None:
@@ -423,6 +434,35 @@ def time_ms(fn, reps=20):
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, tags, reps=20):
+    """The kernels' own device time a call of fn, by torch.profiler: for
+    each traced kernel whose name holds one of ``tags``, its mean duration
+    a launch, summed over those kernels (each launches once a call: a pass
+    and its combine, or B5's two). A mean a launch keeps the figure right
+    if CUPTI drops a record. Returns (ms, "name: us, ..." text)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    per = {}
+    for ev in prof.key_averages():
+        d = getattr(ev, "self_device_time_total",
+                    getattr(ev, "self_cuda_time_total", 0))
+        if (ev.device_type == DeviceType.CUDA and ev.count
+                and any(t in ev.key for t in tags)):
+            name = ev.key.replace("(anonymous namespace)::", "").replace(
+                "void ", "", 1).split("(")[0]
+            per[name] = per.get(name, 0.0) + d / ev.count
+    check(per, f"the profiler traced no kernel named {tags}")
+    ms = sum(per.values()) / 1e3
+    return ms, ", ".join(f"{k} {v:.2f} us" for k, v in sorted(per.items()))
+
+
 def profile_breakdown(fn, reps, label, top=12):
     """torch.profiler over ``reps`` calls of fn: device time and device ops
     a call, the window's host wall, the device's idle share and the
@@ -503,6 +543,18 @@ def clocks_under(fn, seconds=2.0, ms=1.0):
             f"{watt[len(watt) // 2]:.1f} W over {len(rows)} samples")
 
 
+def report_device(name, n, fn, tags, event_ms, bound, reps=20):
+    """Print a kernel's own device time (profiler) beside the CUDA-event
+    time of its wrapper call, and its share of the bound by device time.
+    Returns the device time in ms."""
+    dms, detail = device_ms(fn, tags, reps)
+    print(f"{name} N={n}: device time {dms:.4f} ms a call by the profiler "
+          f"({detail}); wrapper call {event_ms:.4f} ms by CUDA events; "
+          f"bound {bound[0]:.4f} ms ({bound[1]}), {100 * bound[0] / dms:.1f}%"
+          f" of the bound by device time")
+    return dms
+
+
 def report_split_call(name, n, ms, splits, launches, bound):
     print(f"{name} N={n}: {ms:.4f} ms, splits {splits}, {launches}, "
           f"{n * n / (ms / 1e3):.6g} pairs/s, bound "
@@ -539,6 +591,7 @@ def phase_timing(dev, default_scene, default_cfg):
     report_split_call("B1", n, ms, forward_splits(n, n, "reference", dev),
                       cuda_launches(fns["kernel"]), bound)
     print(f"B1 N={n}: {clocks_under(fns['kernel'], ms=ms)}")
+    dms = report_device("B1", n, fns["kernel"], B1_TAGS, ms, bound)
     big = scene_features(dev, 131072)
     nb = big.shape[0]
 
@@ -552,7 +605,7 @@ def phase_timing(dev, default_scene, default_cfg):
     state = init_scene(default_cfg, device=dev)
     profile_breakdown(lambda: step(state), 50,
                       f"default scene step N={n} (no frame)")
-    return ms, float(np.mean(times["plain"])), bound
+    return ms, dms, float(np.mean(times["plain"])), bound
 
 
 def bwd_errors(got, want):
@@ -774,6 +827,8 @@ def phase_bwd_timing(dev, default_scene):
                       backward_splits(n, n, "reference", dev),
                       cuda_launches(fns["kernel"]), bound)
     print(f"B2 N={n}: {clocks_under(fns['kernel'], ms=ms)}")
+    dms = report_device("B2 (both sides)", n, fns["kernel"], B2_TAGS, ms,
+                        bound, reps=10)
     big = scene_features(dev, 131072)
     nb = big.shape[0]
     gb = cotangent(nb, dev)
@@ -783,7 +838,7 @@ def phase_bwd_timing(dev, default_scene):
     report_split_call("B2 alone (both sides)", nb, time_ms(call, reps=3),
                       backward_splits(nb, nb, "reference", dev),
                       cuda_launches(call), b2_bound(nb))
-    return ms, float(np.mean(times["plain"])), bound
+    return ms, dms, float(np.mean(times["plain"])), bound
 
 
 def phase_grad_over_forward(state):
@@ -839,12 +894,14 @@ def million_scene(cfg):
     return arrays
 
 
-def crowded_state(n, seed, field, dead=True):
+def crowded_state(n, seed, field, dead=True, crowd=True):
     """Uniform bodies over +-field, a quarter of them inside one small
-    patch at the centre, body 7 dead."""
+    patch at the centre (unless not ``crowd``), body 7 dead."""
     rng = np.random.RandomState(seed)
     pos = rng.uniform(-field, field, (n, 2)).astype(np.float32)
-    pos[: n // 4] = rng.uniform(-field / 3000, field / 3000, (n // 4, 2))
+    patch = rng.uniform(-field / 3000, field / 3000, (n // 4, 2))
+    if crowd:
+        pos[: n // 4] = patch
     vel = rng.uniform(-3, 3, (n, 2)).astype(np.float32)
     mass = rng.uniform(1e4, 1e17, n).astype(np.float32)
     radius = rng.uniform(50, 200, n).astype(np.float32)
@@ -1188,6 +1245,12 @@ def phase_bh_timing(dev, arrays_1m, cfg):
               f"({by}; {pairs} live near pairs), "
               f"{100 * b / times[name]['ms']:.1f}% of the bound; one "
               f"PyTorch call: {times[name]['library_ms']} ms")
+        kern = fns[name][0]
+        times[name]["device_ms"] = report_device(
+            f"{name} (1M scene)", n, kern,
+            B3_TAGS if name == "B3" else PACK_TAGS, times[name]["ms"],
+            times[name]["bound"])
+    slotpack_tail(dev, levels, S)
 
     state = make_state(*arrays_1m, device=dev)
     rcfg = resolve_bh_config(cfg, state)
@@ -1196,17 +1259,43 @@ def phase_bh_timing(dev, arrays_1m, cfg):
     step(state)
     torch.cuda.synchronize()
     dev_ms = time_ms(lambda: step(state), reps=5)
-    t0 = time.perf_counter()
+    walls = []
     for _ in range(5):
+        t0 = time.perf_counter()
         step(state)
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) / 5 * 1e3
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    walls.sort()
     print(f"bh step N=1M ({rcfg.bh_near}, levels {rcfg.bh_levels}, K "
-          f"{rcfg.bh_neighbor_k}): {dev_ms:.4f} ms CUDA-event span, "
-          f"{wall_ms:.4f} ms host wall a step")
+          f"{rcfg.bh_neighbor_k}): {dev_ms:.4f} ms CUDA-event span, host "
+          f"wall a step median {walls[2]:.4f} ms (5 steps, "
+          f"{walls[0]:.4f}-{walls[-1]:.4f})")
 
     profile_breakdown(lambda: step(state), 3, "bh step N=1M")
     return times
+
+
+def slotpack_tail(dev, levels, S):
+    """B4 and B5 by device time on the crowded N = 262,144 state (one cell
+    holds a quarter of the bodies) and on a uniform state of the same N and
+    cells: the crowded cell's tail shows as the ratio of the two."""
+    from nbodyax_torch.physics.slotpack_kernel import pack_slots
+    got = {}
+    for label, crowd in (("uniform", False), ("crowded", True)):
+        (pos, _, mass, _), ext, st = bh_structure(
+            crowded_state(1 << 18, 4, 1e6, crowd=crowd), dev, levels, False)
+        occ = int((st[3] - st[2]).max())
+        b4, _ = device_ms(lambda: pack_slots(st[4], st[2], st[3], S),
+                          PACK_TAGS)
+        b5, detail = device_ms(
+            lambda: pack_slots(st[4], st[2], st[3], S,
+                               moments=(pos, mass, ext, levels)), PACK_TAGS)
+        got[label] = b5
+        print(f"slot pack N=262144 {label} (levels {levels}, max cell "
+              f"occupancy {occ}): B4 {b4:.4f} ms, B5 {b5:.4f} ms by device "
+              f"time ({detail})")
+    print(f"slot pack N=262144: B5 crowded / uniform device time "
+          f"{got['crowded'] / got['uniform']:.3f}")
 
 
 def main() -> int:
@@ -1233,7 +1322,7 @@ def main() -> int:
     _build.load_library()
     print(f"kernel builds + load: {time.perf_counter() - t0:.3f} s "
           f"({', '.join(src.name for src in _build.SOURCES)})")
-    for src in ("pair_kernel.cu", "pair_bwd_kernel.cu"):
+    for src in (s.name for s in _build.SOURCES):
         log = _build.build_log(src)
         used = [l.split(":", 1)[-1].strip() for l in (log or "").splitlines()
                 if "Used" in l or "spill" in l]
@@ -1251,13 +1340,13 @@ def main() -> int:
     max_abs_err = phase_kernel_vs_plain(dev, scene)
     phase_golden(dev, cfg)
     launches = phase_main_path()
-    ms, plain_ms, b1_bound_ = phase_timing(dev, scene, cfg)
+    ms, b1_dev_ms, plain_ms, b1_bound_ = phase_timing(dev, scene, cfg)
     bwd_max_abs_err = phase_bwd_vs_plain(dev, scene)
     default_state = init_scene(cfg, device=dev)
     bwd_launches = phase_grad_path(default_state)
     phase_shooting(dev)
     phase_main_path(steps=20, integrator="leapfrog")
-    bwd_ms, bwd_plain_ms, b2_bound_ = phase_bwd_timing(dev, scene)
+    bwd_ms, b2_dev_ms, bwd_plain_ms, b2_bound_ = phase_bwd_timing(dev, scene)
     phase_grad_over_forward(default_state)
     bh_cfg = million_config()
     arrays_1m = million_scene(bh_cfg)
@@ -1274,12 +1363,12 @@ def main() -> int:
     rows = [
         ("pair_kernel", "pair_kernel.cu", "nbodyax/physics/kernels.py:92",
          launches, max_abs_err,
-         {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
-          "bound": b1_bound_}),
+         {"ms": ms, "device_ms": b1_dev_ms, "plain_ms": plain_ms,
+          "library_ms": None, "bound": b1_bound_}),
         ("pair_bwd_kernel", "pair_bwd_kernel.cu",
          "nbodyax/physics/kernels_bwd.py:79", bwd_launches, bwd_max_abs_err,
-         {"ms": bwd_ms, "plain_ms": bwd_plain_ms, "library_ms": None,
-          "bound": b2_bound_}),
+         {"ms": bwd_ms, "device_ms": b2_dev_ms, "plain_ms": bwd_plain_ms,
+          "library_ms": None, "bound": b2_bound_}),
         ("near_kernel", "near_kernel.cu", "nbodyax/physics/near_pallas.py:96",
          b3_launches, b3_max_abs_err, bh_times["B3"]),
         ("slot_pack_kernel", "slotpack_kernel.cu",
@@ -1292,7 +1381,8 @@ def main() -> int:
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": f"nbodyax_torch/csrc/{src}",
         "replaces": replaces, "launches": n_launch, "max_abs_err": err,
-        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
+        "ms": t["ms"], "device_ms": t["device_ms"],
+        "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
         "bound_by": t["bound"][1], "library_ms": t["library_ms"]}
         for name, src, replaces, n_launch, err, t in rows]}))
     print(json.dumps({"ok": True, "device": {

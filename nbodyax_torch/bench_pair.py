@@ -106,17 +106,21 @@ def _one(root: str) -> dict:
     return out
 
 
-def main(argv=None) -> int:
-    argv = sys.argv[1:] if argv is None else argv
+def run_turns(argv, script, one, doc, keys) -> int:
+    """The A/B turn loop shared with bench_near: ``--one ROOT`` prints
+    ``one(ROOT)`` as JSON; otherwise run ``script --one`` in a child for
+    each turn, old, new, new, old, and print each turn and the mean of
+    ``keys`` on each side."""
     if argv[:1] == ["--one"]:
-        print(json.dumps(_one(argv[1])))
+        print(json.dumps(one(argv[1])))
         return 0
     if not argv or len(argv) > 2:
-        print(__doc__, file=sys.stderr)
+        print(doc, file=sys.stderr)
         return 2
     import torch
     if not torch.cuda.is_available():
-        print("bench_pair: needs a CUDA card", file=sys.stderr)
+        print(f"{os.path.basename(script)}: needs a CUDA card",
+              file=sys.stderr)
         return 1
     roots = {"old": os.path.abspath(argv[0]),
              "new": os.path.abspath(argv[1] if len(argv) > 1 else _HERE)}
@@ -127,18 +131,23 @@ def main(argv=None) -> int:
     runs = {"old": [], "new": []}
     for side in ("old", "new", "new", "old"):
         proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--one",
-             roots[side]], capture_output=True, text=True)
+            [sys.executable, os.path.abspath(script), "--one", roots[side]],
+            capture_output=True, text=True)
         if proc.returncode != 0:
             print(proc.stdout + proc.stderr, file=sys.stderr)
             return 1
         rec = json.loads(proc.stdout.strip().splitlines()[-1])
         runs[side].append(rec)
         print(side, json.dumps(rec))
-    keys = ("b1_ms", "b2_ms", "forward_step_ms", "grad_step_ms")
     print(json.dumps({side: {k: sum(r[k] for r in rs) / len(rs)
                              for k in keys} for side, rs in runs.items()}))
     return 0
+
+
+def main(argv=None) -> int:
+    return run_turns(sys.argv[1:] if argv is None else argv, __file__, _one,
+                     __doc__, ("b1_ms", "b2_ms", "forward_step_ms",
+                               "grad_step_ms"))
 
 
 if __name__ == "__main__":

@@ -20,31 +20,60 @@
 // Input: the slot grid f32[ncells, S, L] of a 2-D grid of side g (cell
 // c = y * g + x), each cell's first S cell-sorted bodies and zero rows past
 // its count; a row is x, y, [vx, vy], mass, radius, id hi, id lo, with the
-// global id split over two exact f32 lanes (hi * 4096 + lo). Output:
-// f32[ncells, ci, 8] for each cell's first ci slots, slot-major: ch0-1
-// force, then reference gained mass, gained radius, died (0/1); momentum
-// best mass (-inf when none), parent id hi, parent id lo (the slot's own id
-// when none); elastic dv x, y; zeros elsewhere. (The TPU kernel writes a
-// lane-merged channel-major block; that layout is a TPU artefact.)
+// global id split over two exact f32 lanes (hi * 4096 + lo); L is 6, or 8
+// in elastic mode. Output: f32[ncells, ci, 8] for each cell's first ci
+// slots, slot-major: ch0-1 force, then reference gained mass, gained
+// radius, died (0/1); momentum best mass (-inf when none), parent id hi,
+// parent id lo (the slot's own id when none); elastic dv x, y; zeros
+// elsewhere. A slot that holds no live body (a pad, or a dead body) gets
+// exactly those "none" values. (The TPU kernel writes a lane-merged
+// channel-major block; that layout is a TPU artefact.)
 //
-// Design: one warp a cell, four cells a block. Lane t owns i slot i0 + t
-// and sums over every partner in registers, with no atomics, so merge
-// decisions and the momentum argmax repeat bit for bit. The window is the
-// (2 ring + 1) rows of (2 ring + 1) cells around the cell, clipped to the
-// grid (no x-wrap: out-of-grid cells are never read); the cells of one row
-// are adjacent in the slot grid, so a row is one contiguous run of
-// partners, staged through shared memory 32 at a time. Any S and ci up to
-// the 1024-slot ceiling work: ci > 32 loops over groups of 32 i slots.
-// Pad partners (mass 0) are skipped warp-uniformly; a group with no live i
-// slot skips the window and writes the dead-row outputs.
+// What bounds it: FP32 work on the live pairs only, about 18 flops and one
+// rsqrt a pair: 151,273,380 live pairs at N = 1M (levels 8, S 40, ci 32),
+// 0.04 ms at 67 TFLOP/s. No wgmma: the distance is computed subtract-first,
+// as nbodyax does, because the GEMM expansion |p_i|^2 + |p_j|^2 - 2 p_i.p_j
+// rounds differently and moves overlap decisions, which are part of the
+// result. So the work is the CUDA cores' instruction rate, and the design
+// spends it on live pairs and keeps every lane busy:
+//
+// - One warp a cell, four cells a block. The window is the (2 ring + 1)
+//   rows of (2 ring + 1) cells around the cell, clipped to the grid (no
+//   x-wrap: out-of-grid cells are never read); the cells of one row are
+//   adjacent in the slot grid, so a row is one contiguous run of slots.
+// - Live partners only. The warp reads the runs 32 slots at a time, a slot
+//   a lane with 8- or 16-byte loads, and compacts the slots with mass > 0
+//   (__ballot_sync, __popc prefix) into a staging buffer in shared memory:
+//   x, y, m, r as a float4, the id as an int (unpacked once a partner, at
+//   staging), the velocity as a float2 in elastic mode. The buffer holds
+//   `cap` partners (the wrapper's near_plan: the window rounded up to 32,
+//   at most 256), so shared memory is fixed whatever S and ring are; when
+//   the next 32 slots might not fit, or the window ends, the warp computes
+//   on it. A window that fit whole stays staged for the cell's next part
+//   of i slots. (Loading four batches at once, to have more loads in
+//   flight, was measured slower: 72-95 registers cut the warps an SM
+//   holds, and the kernel is bound by instruction throughput, not by
+//   latency.)
+// - Full lanes. The cell's live i slots are compacted the same way (dead
+//   bodies may sit between live ones, so they need not be a prefix): n_i
+//   of them in each group of 32 slots (ci > 32 loops over such groups).
+//   They go through the window in one part, or in two when n_i = p + q
+//   with p a power of two and q <= p / 2 (20 = 16 + 4: 32 lanes carry 16
+//   and then 4 slots, instead of 20 slots on 32 lanes with 12 idle). A
+//   part of n slots gives each k = 32 / next_pow2(n) lanes, and lane
+//   `share` of the k takes staged partners share, share + k, ... The k
+//   partials are folded by __shfl_xor_sync in a fixed order: the force
+//   Kahan-combined, gained mass and radius and the elastic dv added, died
+//   or-ed, the momentum best by larger mass and then lower id.
+// - Cheap pairs: the force is summed plainly over up to 32 partners and
+//   the sub-sum Kahan-added into the lane's total; rsqrt is the SFU's own
+//   (rsqrt_sfu), whose cube equals rsqrtf's wherever rsqrtf's is finite.
+//   No atomics: every call repeats bit for bit.
 //
 // Rounding: d2, rsum^2 and v.p are computed with __fmul_rn / __fadd_rn,
 // which nvcc never contracts into FMAs (a contracted d2 flipped overlap
-// tests in the all-pairs kernel); the force is a Kahan sum.
-//
-// What bounds it: FP32 ALU work, about 30 flops and one rsqrt a live pair;
-// the window rows are read from device memory once a cell (about 9 S L
-// floats) and mostly hit L2, since neighbouring cells share rows.
+// tests in the all-pairs kernel). The elastic coefficient keeps rsqrtf,
+// whose square can stay finite for a denormal argument.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -53,7 +82,8 @@ namespace {
 
 constexpr int kWarps = 4;
 constexpr int kCh = 8;
-constexpr int kMaxL = 8;
+constexpr int kSub = 32;      // partners a lane sums plainly before a Kahan add
+constexpr unsigned kFull = 0xffffffffu;
 
 enum Mode { kReference = 0, kMomentum = 1, kElastic = 2, kNone = 3 };
 
@@ -64,15 +94,55 @@ __device__ __forceinline__ void kahan_add(float& s, float& c, float x) {
   s = t;
 }
 
+// rsqrt on the SFU without rsqrtf's rescaling of denormal inputs: only a
+// denormal input differs (+inf against about 1e19 or more), and the force
+// cubes it, which is +inf either way.
+__device__ __forceinline__ float rsqrt_sfu(float x) {
+  float y;
+  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 __device__ __forceinline__ int unpack_id(float hi, float lo) {
   return static_cast<int>(hi) * 4096 + static_cast<int>(lo);
 }
 
+// One slot row of L = 6 (three 8-byte loads) or L = 8 (two 16-byte loads)
+// floats; rows are 8-byte (L = 6) or 16-byte (L = 8) aligned.
+template <int L>
+__device__ __forceinline__ void load_slot(const float* f, float (&r)[L]) {
+  if constexpr (L == 8) {
+    const float4 a = reinterpret_cast<const float4*>(f)[0];
+    const float4 b = reinterpret_cast<const float4*>(f)[1];
+    r[0] = a.x; r[1] = a.y; r[2] = a.z; r[3] = a.w;
+    r[4] = b.x; r[5] = b.y; r[6] = b.z; r[7] = b.w;
+  } else {
+    const float2* q = reinterpret_cast<const float2*>(f);
+#pragma unroll
+    for (int k = 0; k < L / 2; ++k) {
+      const float2 v = q[k];
+      r[2 * k] = v.x;
+      r[2 * k + 1] = v.y;
+    }
+  }
+}
+
+// Words (4 bytes) of a warp's staging buffer: a float4 and an int a
+// partner, a float2 more with velocities, and 32 ints of compacted i lanes.
+__host__ __device__ constexpr int warp_words(bool vel, int cap) {
+  return cap * (vel ? 7 : 5) + 32;
+}
+
+// At most 64 registers (8 blocks, 32 warps an SM): measured 3.5% faster at
+// the 1M scene than the 63-72 registers the compiler picks alone.
 template <int MODE, bool EPS_POS>
-__global__ void __launch_bounds__(kWarps * 32)
+__global__ void __launch_bounds__(kWarps * 32, 8)
 near_kernel(const float* __restrict__ grid, int g, int ring, int S, int ci,
-            int L, float eps2, float growth, float* __restrict__ out) {
-  __shared__ float stage[kWarps][32][kMaxL + 1];
+            int cap, float eps2, float growth, float* __restrict__ out) {
+  constexpr bool kVel = MODE == kElastic;
+  constexpr int L = kVel ? 8 : 6;
+  constexpr int rest = kVel ? 4 : 2;   // lane of the mass
+  extern __shared__ float4 smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const long long ncells = static_cast<long long>(g) * g;
@@ -80,170 +150,284 @@ near_kernel(const float* __restrict__ grid, int g, int ring, int S, int ci,
   if (cell >= ncells) return;          // the whole warp leaves together
   const int cx = static_cast<int>(cell % g);
   const int cy = static_cast<int>(cell / g);
-  constexpr int rest = MODE == kElastic ? 4 : 2;   // lane of the mass
+  const unsigned below = (1u << lane) - 1u;
+
+  float* wbuf = reinterpret_cast<float*>(smem) + warp * warp_words(kVel, cap);
+  float4* sp = reinterpret_cast<float4*>(wbuf);                // x y m r
+  float2* sv = reinterpret_cast<float2*>(wbuf + 4 * cap);      // vx vy
+  int* sid = reinterpret_cast<int*>(wbuf + (kVel ? 6 : 4) * cap);
+  int* ilane = sid + cap;
+
   const float* cbase = grid + cell * S * L;
-  float(*sh)[kMaxL + 1] = stage[warp];
+  const int x0 = max(cx - ring, 0);
+  const int x1 = min(cx + ring, g - 1);
+  const int run = (x1 - x0 + 1) * S;   // slots of one window row
+
+  int count = 0;         // staged partners, warp-uniform
+  bool whole = false;    // the buffer holds the whole window's partners
 
   for (int i0 = 0; i0 < ci; i0 += 32) {
+    // this group's i slots, a lane each
     const int islot = i0 + lane;
     const bool has = islot < ci;
-    float xi = 0.f, yi = 0.f, vxi = 0.f, vyi = 0.f, mi = 0.f, ri = 0.f;
-    int idi = 0;
-    if (has) {
-      const float* f = cbase + static_cast<long long>(islot) * L;
-      xi = f[0];
-      yi = f[1];
-      if constexpr (MODE == kElastic) {
-        vxi = f[2];
-        vyi = f[3];
-      }
-      mi = f[rest];
-      ri = f[rest + 1];
-      idi = unpack_id(f[rest + 2], f[rest + 3]);
+    float r[L];
+#pragma unroll
+    for (int k = 0; k < L; ++k) r[k] = 0.f;
+    if (has) load_slot<L>(cbase + static_cast<long long>(islot) * L, r);
+    const bool live = has && r[rest] > 0.f;
+    const int own_id = unpack_id(r[rest + 2], r[rest + 3]);
+    if (has && !live) {                // pad or dead: the "none" outputs
+      float4* o = reinterpret_cast<float4*>(out + (cell * ci + islot) * kCh);
+      o[0] = MODE == kMomentum
+                 ? make_float4(0.f, 0.f, -INFINITY,
+                               static_cast<float>(own_id >> 12))
+                 : make_float4(0.f, 0.f, 0.f, 0.f);
+      o[1] = make_float4(
+          MODE == kMomentum ? static_cast<float>(own_id & 0xFFF) : 0.f, 0.f,
+          0.f, 0.f);
     }
-    const bool live = has && mi > 0.f;
+    const unsigned imask = __ballot_sync(kFull, live);
+    if (imask == 0u) continue;         // warp-uniform
+    const int ni = __popc(imask);
+    __syncwarp();                      // earlier readers of ilane are done
+    if (live) ilane[__popc(imask & below)] = lane;
+    __syncwarp();
 
-    float fx = 0.f, fy = 0.f, kx = 0.f, ky = 0.f;   // force, compensation
-    float c2 = 0.f, c3 = 0.f, c4 = 0.f;
-    float best = -INFINITY;
-    int best_id = idi;
+    // The ni live slots in one or two parts, each of a power of two of
+    // slots or fewer with k = 32 / next_pow2(size) lanes a slot: ni = p + q
+    // with p the largest power of two <= ni splits when next_pow2(q) < p
+    // (q <= p / 2), which spends 32 lanes on p + next_pow2(q) slots
+    // instead of 2p.
+    const int top = 1 << (31 - __clz(ni));
+    const int rem = ni - top;
+    const bool split = rem > 0 && 2 * rem <= top;
+    for (int part = 0; part < (split ? 2 : 1); ++part) {
+      const int j0 = part ? top : 0;
+      const int nj = split ? (part ? rem : top) : ni;
+      const int klog = 5 - (32 - __clz(nj - 1));
+      const int k = 1 << klog;
+      const int jj = lane >> klog;
+      const int share = lane & (k - 1);
+      const bool act = jj < nj;
+      const int src = act ? ilane[j0 + jj] : lane;
+      const float xi = __shfl_sync(kFull, r[0], src);
+      const float yi = __shfl_sync(kFull, r[1], src);
+      const float mi = __shfl_sync(kFull, r[rest], src);
+      const float ri = __shfl_sync(kFull, r[rest + 1], src);
+      const int idi = __shfl_sync(kFull, own_id, src);
+      float vxi = 0.f, vyi = 0.f;
+      if constexpr (kVel) {
+        vxi = __shfl_sync(kFull, r[2], src);
+        vyi = __shfl_sync(kFull, r[3], src);
+      }
 
-    if (__any_sync(0xffffffffu, live)) {
-      const int x0 = max(cx - ring, 0);
-      const int x1 = min(cx + ring, g - 1);
-      const int total = (x1 - x0 + 1) * S;
-      for (int dy = -ring; dy <= ring; ++dy) {
-        const int y = cy + dy;
-        if (y < 0 || y >= g) continue;
-        const float* wbase =
-            grid + (static_cast<long long>(y) * g + x0) * S * L;
-        for (int p0 = 0; p0 < total; p0 += 32) {
-          const int p = p0 + lane;
-          __syncwarp();
-          if (p < total) {
-            const float* f = wbase + static_cast<long long>(p) * L;
-            for (int k = 0; k < L; ++k) sh[lane][k] = f[k];
-          }
-          __syncwarp();
-          const int cnt = min(32, total - p0);
-          for (int t = 0; t < cnt; ++t) {
-            const float* q = sh[t];
-            const float mj = q[rest];
-            if (!(mj > 0.f)) continue;        // pad slot: same on every lane
-            const int idj = unpack_id(q[rest + 2], q[rest + 3]);
-            const bool valid = live && idj != idi;
-            const float dx = __fsub_rn(q[0], xi);
-            const float dy2 = __fsub_rn(q[1], yi);
-            const float d2 = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy2, dy2));
-            const float rsum = __fadd_rn(ri, q[rest + 1]);
-            const bool overlap = valid && d2 <= __fmul_rn(rsum, rsum);
-            const bool fmask =
-                MODE == kElastic ? valid : (valid && !overlap);
-            const float d2e = __fadd_rn(d2, eps2);
-            float w;
-            if constexpr (EPS_POS) {
-              const float inv = rsqrtf(d2e);
-              w = fmask ? mj * (inv * inv * inv) : 0.f;
-            } else {
-              const bool safe = fmask && d2e > 0.f;
-              const float inv = rsqrtf(safe ? d2e : 1.f);
-              w = safe ? mj * (inv * inv * inv) : 0.f;
-            }
-            kahan_add(fx, kx, w * dx);
-            kahan_add(fy, ky, w * dy2);
-            if constexpr (MODE == kReference) {
-              if (overlap) {
-                if (mi >= mj) {
-                  c2 += mj;
-                  c3 += __fmul_rn(q[rest + 1], growth);
-                } else {
-                  c4 = 1.f;
+      float fx = 0.f, fy = 0.f, kx = 0.f, ky = 0.f;  // force, compensation
+      float c2 = 0.f, c3 = 0.f, c4 = 0.f;
+      float best = -INFINITY;
+      int best_id = idi;
+
+      // the pairs of this lane's share of staged partners [0, n)
+      auto compute = [&](int n) {
+        __syncwarp();                  // the staged rows are visible
+        if (act) {
+          for (int t0 = share; t0 < n; t0 += k * kSub) {
+            const int t1 = min(n, t0 + k * kSub);
+            float sx = 0.f, sy = 0.f;
+#pragma unroll 4
+            for (int t = t0; t < t1; t += k) {
+              const float4 p = sp[t];
+              const int idj = sid[t];
+              const float mj = p.z;
+              const float dx = __fsub_rn(p.x, xi);
+              const float dy = __fsub_rn(p.y, yi);
+              const float d2 =
+                  __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
+              const float rsum = __fadd_rn(ri, p.w);
+              const bool valid = idj != idi;
+              const bool touch = d2 <= __fmul_rn(rsum, rsum);
+              const bool overlap = valid && touch;
+              const bool fmask = kVel ? valid : (valid && !touch);
+              const float d2e = __fadd_rn(d2, eps2);
+              const float inv = rsqrt_sfu(d2e);
+              const float wm = mj * (inv * inv * inv);
+              const float w =
+                  (EPS_POS ? fmask : (fmask && d2e > 0.f)) ? wm : 0.f;
+              sx += w * dx;
+              sy += w * dy;
+              if constexpr (MODE == kReference) {
+                if (overlap) {
+                  if (mi >= mj) {
+                    c2 += mj;
+                    c3 += __fmul_rn(p.w, growth);
+                  } else {
+                    c4 = 1.f;
+                  }
+                }
+              } else if constexpr (MODE == kMomentum) {
+                const bool beats = mj > mi || (mj == mi && idj < idi);
+                if (overlap && beats &&
+                    (mj > best || (mj == best && idj < best_id))) {
+                  best = mj;
+                  best_id = idj;
+                }
+              } else if constexpr (MODE == kElastic) {
+                const float2 v = sv[t];
+                const float vdotp =
+                    __fadd_rn(__fmul_rn(__fsub_rn(v.x, vxi), dx),
+                              __fmul_rn(__fsub_rn(v.y, vyi), dy));
+                if (overlap && vdotp < 0.f && d2 > 0.f) {
+                  const float rs = rsqrtf(__fmul_rn(__fadd_rn(mi, mj), d2));
+                  const float coef = 2.f * vdotp * (rs * rs) * mj;
+                  c2 += coef * dx;
+                  c3 += coef * dy;
                 }
               }
-            } else if constexpr (MODE == kMomentum) {
-              const bool beats = mj > mi || (mj == mi && idj < idi);
-              if (overlap && beats &&
-                  (mj > best || (mj == best && idj < best_id))) {
-                best = mj;
-                best_id = idj;
-              }
-            } else if constexpr (MODE == kElastic) {
-              const float vdotp =
-                  __fadd_rn(__fmul_rn(__fsub_rn(q[2], vxi), dx),
-                            __fmul_rn(__fsub_rn(q[3], vyi), dy2));
-              if (overlap && vdotp < 0.f && d2 > 0.f) {
-                const float rs = rsqrtf(__fmul_rn(__fadd_rn(mi, mj), d2));
-                const float coef = 2.f * vdotp * (rs * rs) * mj;
-                c2 += coef * dx;
-                c3 += coef * dy2;
-              }
             }
+            kahan_add(fx, kx, sx);
+            kahan_add(fy, ky, sy);
           }
         }
-      }
-    }
+        __syncwarp();                  // done reading before restaging
+      };
 
-    if (has) {
-      float* o = out + (cell * ci + islot) * kCh;
-      o[0] = fx;
-      o[1] = fy;
-      if constexpr (MODE == kMomentum) {
-        o[2] = best;
-        o[3] = static_cast<float>(best_id >> 12);
-        o[4] = static_cast<float>(best_id & 0xFFF);
+      if (whole) {
+        compute(count);                // the window is staged already
       } else {
-        o[2] = c2;
-        o[3] = c3;
-        o[4] = c4;
+        // stage the window's live partners, computing whenever the next
+        // batch of slots might not fit
+        count = 0;
+        whole = true;
+        for (int wy = max(cy - ring, 0); wy <= min(cy + ring, g - 1); ++wy) {
+          const float* wrow =
+              grid + (static_cast<long long>(wy) * g + x0) * S * L;
+          for (int p0 = 0; p0 < run; p0 += 32) {
+            if (count + min(32, run - p0) > cap) {
+              compute(count);
+              count = 0;
+              whole = false;
+            }
+            const int p = p0 + lane;
+            float q[L];
+            bool lv = false;
+            if (p < run) {
+              load_slot<L>(wrow + static_cast<long long>(p) * L, q);
+              lv = q[rest] > 0.f;
+            }
+            const unsigned m = __ballot_sync(kFull, lv);
+            if (lv) {
+              const int at = count + __popc(m & below);
+              sp[at] = make_float4(q[0], q[1], q[rest], q[rest + 1]);
+              sid[at] = unpack_id(q[rest + 2], q[rest + 3]);
+              if constexpr (kVel) sv[at] = make_float2(q[2], q[3]);
+            }
+            count += __popc(m);
+          }
+        }
+        if (count > 0) compute(count);
       }
-      o[5] = 0.f;
-      o[6] = 0.f;
-      o[7] = 0.f;
+
+      // fold the k shares of each i slot, in a fixed order
+      for (int off = k >> 1; off > 0; off >>= 1) {
+        const float ofx = __shfl_xor_sync(kFull, fx, off);
+        const float okx = __shfl_xor_sync(kFull, kx, off);
+        const float ofy = __shfl_xor_sync(kFull, fy, off);
+        const float oky = __shfl_xor_sync(kFull, ky, off);
+        kahan_add(fx, kx, ofx);
+        kahan_add(fx, kx, -okx);
+        kahan_add(fy, ky, ofy);
+        kahan_add(fy, ky, -oky);
+        if constexpr (MODE == kReference) {
+          c2 = __fadd_rn(c2, __shfl_xor_sync(kFull, c2, off));
+          c3 = __fadd_rn(c3, __shfl_xor_sync(kFull, c3, off));
+          c4 = fmaxf(c4, __shfl_xor_sync(kFull, c4, off));
+        } else if constexpr (MODE == kMomentum) {
+          const float ob = __shfl_xor_sync(kFull, best, off);
+          const int oid = __shfl_xor_sync(kFull, best_id, off);
+          if (ob > best || (ob == best && oid < best_id)) {
+            best = ob;
+            best_id = oid;
+          }
+        } else if constexpr (MODE == kElastic) {
+          c2 = __fadd_rn(c2, __shfl_xor_sync(kFull, c2, off));
+          c3 = __fadd_rn(c3, __shfl_xor_sync(kFull, c3, off));
+        }
+      }
+
+      if (act && share == 0) {
+        const int slot = i0 + ilane[j0 + jj];
+        float4* o = reinterpret_cast<float4*>(out + (cell * ci + slot) * kCh);
+        if constexpr (MODE == kMomentum) {
+          o[0] = make_float4(fx, fy, best, static_cast<float>(best_id >> 12));
+          o[1] = make_float4(static_cast<float>(best_id & 0xFFF), 0.f, 0.f,
+                             0.f);
+        } else {
+          o[0] = make_float4(fx, fy, c2, c3);
+          o[1] = make_float4(c4, 0.f, 0.f, 0.f);
+        }
+      }
     }
   }
 }
 
 template <int MODE>
-void launch(const float* grid, int g, int ring, int S, int ci, int L,
-            float eps2, float growth, float* out, cudaStream_t stream) {
+int launch(const float* grid, int g, int ring, int S, int ci, int cap,
+           float eps2, float growth, float* out, cudaStream_t stream) {
   const long long ncells = static_cast<long long>(g) * g;
   const int blocks = static_cast<int>((ncells + kWarps - 1) / kWarps);
+  const size_t smem =
+      static_cast<size_t>(kWarps) * warp_words(MODE == kElastic, cap) * 4;
+  if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
   if (eps2 > 0.f) {
-    near_kernel<MODE, true><<<blocks, kWarps * 32, 0, stream>>>(
-        grid, g, ring, S, ci, L, eps2, growth, out);
+    near_kernel<MODE, true><<<blocks, kWarps * 32, smem, stream>>>(
+        grid, g, ring, S, ci, cap, eps2, growth, out);
   } else {
-    near_kernel<MODE, false><<<blocks, kWarps * 32, 0, stream>>>(
-        grid, g, ring, S, ci, L, eps2, growth, out);
+    near_kernel<MODE, false><<<blocks, kWarps * 32, smem, stream>>>(
+        grid, g, ring, S, ci, cap, eps2, growth, out);
   }
+  return 0;
 }
 
 }  // namespace
 
-// Plain C entry point for ctypes. Returns cudaGetLastError() after the
-// launch (0 on success); an unknown mode or a row wider than 8 floats
-// returns cudaErrorInvalidValue.
+// Shared bytes a block of B3 takes in `mode` with a staging capacity of
+// `cap` partners a warp; the wrapper's near_plan computes the same.
+extern "C" int nbodyax_near_shared_bytes(int mode, int cap) {
+  return kWarps * warp_words(mode == kElastic, cap) * 4;
+}
+
+// Plain C entry point for ctypes. `cap` (a multiple of 32, at least 32)
+// is the staging capacity from the wrapper's near_plan. Returns
+// cudaGetLastError() after the launch (0 on success); an unknown mode, a
+// row width other than the mode's (6, or 8 in elastic mode), ci > S or a
+// bad capacity returns cudaErrorInvalidValue.
 extern "C" int nbodyax_slots_near(const float* grid, int g, int ring, int S,
-                                  int ci, int L, int mode, float eps2,
-                                  float growth, float* out, void* stream) {
-  if (L > kMaxL || ci > S) return static_cast<int>(cudaErrorInvalidValue);
+                                  int ci, int L, int cap, int mode,
+                                  float eps2, float growth, float* out,
+                                  void* stream) {
+  if (mode < kReference || mode > kNone || L != (mode == kElastic ? 8 : 6) ||
+      ci > S || cap < 32 || cap % 32 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int err = 0;
   if (g > 0) {
     switch (mode) {
       case kReference:
-        launch<kReference>(grid, g, ring, S, ci, L, eps2, growth, out, s);
+        err = launch<kReference>(grid, g, ring, S, ci, cap, eps2, growth, out,
+                                 s);
         break;
       case kMomentum:
-        launch<kMomentum>(grid, g, ring, S, ci, L, eps2, growth, out, s);
+        err = launch<kMomentum>(grid, g, ring, S, ci, cap, eps2, growth, out,
+                                s);
         break;
       case kElastic:
-        launch<kElastic>(grid, g, ring, S, ci, L, eps2, growth, out, s);
-        break;
-      case kNone:
-        launch<kNone>(grid, g, ring, S, ci, L, eps2, growth, out, s);
+        err = launch<kElastic>(grid, g, ring, S, ci, cap, eps2, growth, out,
+                               s);
         break;
       default:
-        return static_cast<int>(cudaErrorInvalidValue);
+        err = launch<kNone>(grid, g, ring, S, ci, cap, eps2, growth, out, s);
+        break;
     }
   }
-  return static_cast<int>(cudaGetLastError());
+  return err != 0 ? err : static_cast<int>(cudaGetLastError());
 }

@@ -17,7 +17,8 @@ in ``barneshut._near_field_cells``.
 
 - ``slots_near`` launches the kernel on a CUDA tensor and runs
   ``slots_near_reference`` on a CPU tensor; ``slots_near.launches`` counts
-  kernel launches.
+  kernel launches. ``near_plan`` is its one host-side choice: the staging
+  capacity of live partners a warp and the shared memory that takes.
 - ``slots_near_reference`` is the port of the jnp slots engine of
   ``_near_field_cells`` (its ``one_chunk``, barneshut.py:1004-1084),
   evaluated over the same slot grid.
@@ -36,11 +37,29 @@ from nbodyax_torch.physics.bh_grid import (_gathered_pair_accum, _pack_id,
 from nbodyax_torch.physics.pairwise import (combine_accumulators,
                                             empty_accumulators)
 
-__all__ = ["slots_near", "slots_near_reference", "NUM_CH", "MODES"]
+__all__ = ["slots_near", "slots_near_reference", "near_plan", "NUM_CH",
+           "MODES"]
 
 NUM_CH = 8
 MODES = ("reference", "momentum", "elastic", "none")
 _PAIRS_PER_CHUNK = 1 << 22
+NEAR_WARPS = 4          # cells a block (csrc/near_kernel.cu kWarps)
+NEAR_MAX_CAP = 256      # most live partners a warp stages before it computes
+SHARED_LIMIT = 48 * 1024   # static-launch limit: no opt-in needed
+
+
+def near_plan(S: int, ring: int, L: int):
+    """B3's staging buffer: (capacity, shared bytes a block). A warp stages
+    up to ``capacity`` live partners of its window: the window's
+    (2 ring + 1)^2 S slots rounded up to 32 and at most NEAR_MAX_CAP, so a
+    small window is staged whole and any S or ring takes a fixed amount of
+    shared memory. A partner is a float4 (x, y, m, r) and an int id, plus
+    a float2 velocity when L = 8 (elastic); each warp adds 32 ints of
+    compacted i lanes (the kernel's warp_words)."""
+    win = (2 * ring + 1) ** 2 * S
+    cap = min(NEAR_MAX_CAP, -(-win // 32) * 32)
+    words = cap * (7 if L == 8 else 5) + 32
+    return cap, NEAR_WARPS * words * 4
 
 
 def _check(fslot, mode, ci, g, dim):
@@ -70,13 +89,17 @@ def slots_near(fslot, *, mode: str, eps2: float, growth: float, g: int,
     from nbodyax_torch.physics._build import load_library
     lib = load_library()
     fslot = fslot.contiguous()
+    if fslot.data_ptr() % 16:           # the kernel's 8- and 16-byte loads
+        fslot = fslot.clone()
     ncells, S, L = fslot.shape
+    cap, _ = near_plan(S, ring, L)
     out = torch.empty((ncells, ci, NUM_CH), dtype=torch.float32,
                       device=fslot.device)
     with torch.cuda.device(fslot.device):
         stream = torch.cuda.current_stream(fslot.device).cuda_stream
         err = lib.nbodyax_slots_near(fslot.data_ptr(), g, ring, S, ci, L,
-                                     MODES.index(mode), float(np.float32(eps2)),
+                                     cap, MODES.index(mode),
+                                     float(np.float32(eps2)),
                                      float(np.float32(growth)),
                                      out.data_ptr(), stream)
     if err != 0:

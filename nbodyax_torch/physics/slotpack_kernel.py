@@ -14,6 +14,9 @@ kernel's static capacity and its runtime fallback have no counterpart.
   order-2 moments of a 2-D grid) on a CUDA tensor, and the plain versions on
   a CPU tensor. ``pack_slots.launches`` and ``pack_slots.moment_launches``
   count the kernel launches.
+- ``moment_plan`` is the wrapper's one host-side choice: the chunks of
+  B5's first pass, which reduces the cells of more than MOMENT_CHUNK
+  bodies in pieces, and the scratch its partials take.
 - ``build_slot_grid_reference`` is the port of ``_build_slot_grid`` (one
   gather), ``finest_moments_reference`` the port of
   ``_finest_moments_scatter`` (one ``index_add_``). The tests and
@@ -28,7 +31,17 @@ from nbodyax_torch.physics.bh_grid import (_cell_sizes, _cells,
                                            _flatten_cells, _moment_pairs)
 
 __all__ = ["pack_slots", "build_slot_grid_reference",
-           "finest_moments_reference"]
+           "finest_moments_reference", "moment_plan", "MOMENT_CHUNK"]
+
+MOMENT_CHUNK = 256      # sorted bodies a warp of B5's chunk pass (kChunk)
+
+
+def moment_plan(n: int):
+    """B5's chunk pass over the n sorted bodies: (chunks, scratch floats).
+    Each chunk of MOMENT_CHUNK bodies writes two partials of 6 moments
+    (the cells of more than MOMENT_CHUNK bodies that it meets)."""
+    chunks = -(-n // MOMENT_CHUNK)
+    return chunks, chunks * 2 * 6
 
 
 def build_slot_grid_reference(sf, starts, ends, n: int, ncells: int, S: int):
@@ -90,6 +103,8 @@ def _launch(sf, starts, ends, S: int, moments):
     if not 0 < S <= 1024:
         raise ValueError(f"S must be in [1, 1024], got {S}")
     sf = sf.contiguous()
+    if sf.data_ptr() % 8:               # the kernel's 8-byte loads
+        sf = sf.clone()
     starts = starts.to(torch.int64).contiguous()
     ends = ends.to(torch.int64).contiguous()
     rows = torch.empty((ncells, S, L), dtype=torch.float32, device=sf.device)
@@ -114,10 +129,13 @@ def _launch(sf, starts, ends, S: int, moments):
                 device=sf.device, dtype=torch.float32).contiguous()
             mom = torch.empty((ncells, 6), dtype=torch.float32,
                               device=sf.device)
+            chunks, scratch = moment_plan(sf.shape[0] - 1)
+            part = torch.empty((scratch,), dtype=torch.float32,
+                               device=sf.device)
             err = lib.nbodyax_slot_pack_moments(
                 sf.data_ptr(), L, starts.data_ptr(), ends.data_ptr(), ncells,
-                S, g, geom.data_ptr(), rows.data_ptr(), mom.data_ptr(),
-                stream)
+                S, g, geom.data_ptr(), chunks, part.data_ptr(),
+                rows.data_ptr(), mom.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"slot-pack kernel launch failed: CUDA error {err}")
     if mom is None:

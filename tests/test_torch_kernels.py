@@ -431,3 +431,212 @@ def test_bh_accumulators_kernels_match_plain_engine(cuda):
     assert torch.equal(a.died, b.died)
     torch.testing.assert_close(a.gained_mass, b.gained_mass, rtol=1e-5,
                                atol=0)
+
+
+# ---------------------------------------------------------------------------
+# B3 and B5 on hand-built edge cases. The state builders are plain numpy and
+# torch on the CPU; tests/test_torch_near_plan.py holds the plain versions
+# to nbodyax on the same states.
+# ---------------------------------------------------------------------------
+
+# bodies a cell, cycled over the cells; with the dead body of every other
+# cell the live i slots take 0-2, 5, 10, 15-17, 20, 24 and 30-40: one and
+# two parts, k = 32 / next_pow2(n) of 1 to 32 lanes, and ci = 40 > 32
+LIVE_COUNTS = [0, 1, 2, 3, 6, 11, 16, 17, 18, 21, 25, 31, 32, 33, 40]
+
+
+def manual_slot_grid(g, S, counts, seed, vel, id_base=0):
+    """A slot grid f32[g * g, S, L] built by hand: cell c holds
+    ``counts[c % len(counts)]`` bodies in its own 100 x 100 square (radii
+    5-40, so pairs overlap within and across cells), then zero rows. In an
+    even cell of three or more, slot 1 is a dead body (mass 0, its id
+    kept), so the live slots are not a prefix. Ids count up from
+    ``id_base``."""
+    rng = np.random.RandomState(seed)
+    L = 8 if vel else 6
+    grid = np.zeros((g * g, S, L), np.float32)
+    nid = id_base
+    for c in range(g * g):
+        k = counts[c % len(counts)]
+        cx, cy = c % g, c // g
+        for s in range(k):
+            row = [(cx + rng.uniform()) * 100.0, (cy + rng.uniform()) * 100.0]
+            if vel:
+                row += list(rng.uniform(-3, 3, 2))
+            dead = s == 1 and k >= 3 and c % 2 == 0
+            mass = 0.0 if dead else rng.uniform(1, 100)
+            row += [mass, rng.uniform(5, 40), nid >> 12, nid & 0xFFF]
+            grid[c, s] = row
+            nid += 1
+    return torch.from_numpy(grid)
+
+
+def tie_slot_grid(S):
+    """Cell 0 of a 2 x 2 grid: body A (mass 50, id 9) and three bodies of
+    mass 500 at A's place (ids 10, 5, 7, in that slot order), all
+    overlapping: A's parent is id 5, which is neither the first staged
+    partner nor in the first lane share; so is id 10's (5 beats it on the
+    equal-mass tie)."""
+    L = 6
+    grid = np.zeros((4, S, L), np.float32)
+    for s, (m, i) in enumerate([(50.0, 9), (500.0, 10), (500.0, 5),
+                                (500.0, 7)]):
+        grid[0, s, :2] = 50.0
+        grid[0, s, L - 4:] = [m, 1.0, i >> 12, i & 0xFFF]
+    return torch.from_numpy(grid)
+
+
+def chunk_counts_state(counts, levels, seed, n_dead=10):
+    """pos, vel, mass, radius with exactly ``counts[c]`` live bodies in
+    cell c of the 2^levels grid over [0, 1000]^2 (two bodies pin the
+    extent's corners), plus ``n_dead`` dead ones."""
+    rng = np.random.RandomState(seed)
+    g = 1 << levels
+    w = 1000.0 / g
+    pos = []
+    for c, k in enumerate(counts):
+        cx, cy = c % g, c // g
+        pos.append(np.stack([rng.uniform((cx + 0.1) * w, (cx + 0.9) * w, k),
+                             rng.uniform((cy + 0.1) * w, (cy + 0.9) * w, k)],
+                            1))
+    pos = np.concatenate(pos).astype(np.float32)
+    pos[0] = (0.0, 0.0)                  # in cell 0
+    pos[-1] = (1000.0, 1000.0)           # in the last cell
+    n = pos.shape[0] + n_dead
+    pos = np.concatenate([pos, rng.uniform(0, 1000, (n_dead, 2))]).astype(
+        np.float32)
+    vel = rng.uniform(-3, 3, (n, 2)).astype(np.float32)
+    mass = rng.uniform(1e4, 1e17, n).astype(np.float32)
+    mass[-n_dead:] = 0.0
+    radius = rng.uniform(1, 5, n).astype(np.float32)
+    return pos, vel, mass, radius
+
+
+# cell counts whose running sums put chunk boundaries (every 256 bodies)
+# on cell edges (256, 768, 1024) and inside cells, with cells of more and
+# of fewer than 256 bodies on both sides and a total not a multiple of 256
+CHUNK_COUNTS = [256, 512, 1, 0, 255, 257, 300, 0, 700, 3, 0, 0, 1000, 256, 5,
+                77]
+
+
+def near_check(k, p, mode):
+    """B3 against its plain version at every slot: float channels within
+    NEAR_GATE of the channel's largest value, died and ids exact, the
+    momentum candidate sets equal."""
+    fin = torch.isfinite(p)
+    assert torch.equal(fin, torch.isfinite(k))
+    k, p = torch.where(fin, k, 0.0), torch.where(fin, p, 0.0)
+    scale = p.abs().amax((0, 1)).clamp(min=1e-30)
+    exact = {"reference": [4], "momentum": [3, 4]}.get(mode, [])
+    for c in range(8):
+        if c in exact:
+            assert torch.equal(k[..., c], p[..., c]), c
+        else:
+            assert float((k[..., c] - p[..., c]).abs().max() / scale[c]) \
+                < NEAR_GATE, c
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("ring", [1, 2])
+def test_near_kernel_live_counts_and_dead_mid_cell(cuda, mode, ring):
+    """Cells of 0 to 40 live slots (LIVE_COUNTS: every lane share k, one
+    and two parts, the ci = 40 > 32 second group, windows staged whole and
+    in several passes), dead bodies between live ones as i and as partner,
+    ring 2 at the corners of an 8 x 8 grid, ids past 2^24, at eps 0 and
+    100, and bitwise repeats."""
+    from nbodyax_torch.physics.near_kernel import (slots_near,
+                                                   slots_near_reference)
+    fslot = manual_slot_grid(8, 48, LIVE_COUNTS, 21, mode == "elastic",
+                             id_base=(1 << 25) + 3).to(cuda)
+    for eps in (0.0, 100.0):
+        kw = dict(mode=mode, eps2=eps * eps, growth=0.1, g=8, ring=ring,
+                  ci=40)
+        k = slots_near(fslot, **kw)
+        near_check(k, slots_near_reference(fslot, **kw), mode)
+        assert torch.equal(k, slots_near(fslot, **kw))
+
+
+def test_near_kernel_momentum_tie_across_lane_shares(cuda):
+    """n_i = 4 gives each i slot 8 lanes, so the three equal-mass winners
+    are summed in three different lane shares: the fold must pick id 5."""
+    from nbodyax_torch.physics.bh_grid import _unpack_id
+    from nbodyax_torch.physics.near_kernel import (slots_near,
+                                                   slots_near_reference)
+    fslot = tie_slot_grid(8).to(cuda)
+    kw = dict(mode="momentum", eps2=0.0, growth=0.1, g=2, ring=1, ci=8)
+    k = slots_near(fslot, **kw)
+    near_check(k, slots_near_reference(fslot, **kw), "momentum")
+    assert int(_unpack_id(k[0, 0, 3], k[0, 0, 4])) == 5
+    assert int(_unpack_id(k[0, 1, 3], k[0, 1, 4])) == 5
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_near_kernel_s1024_crowded(cuda, mode):
+    """S = 1024 and ring 2: a crowded cell's window is 25,600 slots, staged
+    through the fixed buffer in many passes."""
+    from nbodyax_torch.physics.near_kernel import (slots_near,
+                                                   slots_near_reference)
+    counts = [1000, 3, 0, 700, 1024, 17]
+    fslot = manual_slot_grid(4, 1024, counts, 23, mode == "elastic").to(cuda)
+    # crowd each cell into a 10 x 10 corner so every pair overlaps often
+    fslot[..., :2] = torch.floor(fslot[..., :2] / 100.0) * 100.0 \
+        + torch.remainder(fslot[..., :2], 10.0)
+    kw = dict(mode=mode, eps2=0.0, growth=0.1, g=4, ring=2, ci=64)
+    k = slots_near(fslot, **kw)
+    near_check(k, slots_near_reference(fslot, **kw), mode)
+    assert torch.equal(k, slots_near(fslot, **kw))
+
+
+def test_near_shared_bytes_match_plan(cuda):
+    from nbodyax_torch.physics._build import load_library
+    from nbodyax_torch.physics.near_kernel import MODES as NMODES, near_plan
+    lib = load_library()
+    for S in (40, 48, 1024):
+        for ring in (1, 2):
+            for mode in NMODES:
+                L = 8 if mode == "elastic" else 6
+                cap, nbytes = near_plan(S, ring, L)
+                assert lib.nbodyax_near_shared_bytes(NMODES.index(mode),
+                                                     cap) == nbytes
+
+
+def slot_pack_check(arrays, levels, S, dev):
+    """B4 and B5 rows bitwise equal to the gather, B5 moments within 2e-6
+    of max(per-channel scale, 1), and both bitwise on a repeat."""
+    from nbodyax_torch.physics.bh_grid import _extent, _partner_structure
+    from nbodyax_torch.physics.slotpack_kernel import (
+        build_slot_grid_reference, finest_moments_reference, pack_slots)
+    pos, vel, mass, radius = (torch.from_numpy(x).to(dev) for x in arrays)
+    ext = _extent(pos, mass > 0)
+    st = _partner_structure(pos, vel, mass, radius, ext, 1 << levels, False)
+    n, ncells = pos.shape[0], 1 << (2 * levels)
+    want = build_slot_grid_reference(st[4], st[2], st[3], n, ncells, S)
+    rows4 = pack_slots(st[4], st[2], st[3], S)
+    rows5, mom = pack_slots(st[4], st[2], st[3], S,
+                            moments=(pos, mass, ext, levels))
+    assert torch.equal(rows4, want) and torch.equal(rows5, want)
+    ref = finest_moments_reference(pos, mass, ext, levels)
+    scale = ref.abs().amax(0).clamp(min=1.0)
+    assert float(((mom - ref).abs().amax(0) / scale).max()) < 2e-6
+    again, mom2 = pack_slots(st[4], st[2], st[3], S,
+                             moments=(pos, mass, ext, levels))
+    assert torch.equal(again, rows5) and torch.equal(mom2, mom)
+    return st
+
+
+@pytest.mark.parametrize("S", [40, 33, 256])
+def test_slot_pack_chunk_boundaries(cuda, S):
+    """Chunk boundaries on cell edges and inside cells of more and fewer
+    than 256 bodies, empty cells, n not a multiple of 256; S * L a multiple
+    of 4 (16-byte stores), of 2 only (S = 33), and cells shorter than S."""
+    st = slot_pack_check(chunk_counts_state(CHUNK_COUNTS, 2, 31), 2, S, cuda)
+    assert (st[3] - st[2]).tolist() == CHUNK_COUNTS
+
+
+def test_slot_pack_crowded_cell_beside_empty_cells(cuda):
+    """A cell of 70,000 bodies (274 chunks) beside 1,000 empty cells."""
+    counts = [0] * 1024
+    counts[517] = 70000
+    counts[0] = counts[-1] = 1
+    counts[300] = 300
+    slot_pack_check(chunk_counts_state(counts, 5, 33), 5, 40, cuda)
