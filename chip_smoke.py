@@ -62,7 +62,24 @@ Phases, each of which exits non-zero on failure:
     each kernel's own device time; B4 and B5 by device time on the crowded
     N = 262,144 state and on a uniform state of the same N (the crowded
     cell's tail); one bh step (CUDA-event span, host wall of 5 steps), and
-    one step's profiler breakdown and device idle share.
+    one step's profiler breakdown and device idle share;
+17. ``dimensions=3``: B1's 3-D form against its plain version at N = 300
+    (random, dense overlaps, a dead slot) and on the 3-D default scene
+    (N = 16,384), all four modes at eps 0 and reference and elastic at
+    eps 25, at tests/test_3d.py's gates and the force within 3e-7 of the
+    largest, bitwise repeats, ids past 2^30, offset calls over split j
+    halves; then the planar check: a 3-D call on the z = 0 copy of the 2-D
+    default scene takes the 2-D call's merge decisions, bit for bit where
+    both forms split the partners alike;
+18. B2's 3-D form against its plain version as phase 6;
+19. the 3-D main path: ``nbodyax_torch.cli`` with ``--set dimensions=3``
+    for 200 steps, 20 P5 frames of the xy projection, ``momentum_z`` in
+    every log line, one B1 launch a step;
+20. the 3-D gradient path: a 4-step euler rollout of the 3-D default
+    scene through the kernels against autograd of the oracle, as phase 7;
+21. B1 and B2 in 3-D timed beside their 2-D calls at N = 16,384 (device
+    time too), B1 alone at N = 1,048,576 in 3-D and 2-D (pairs/s and
+    their ratio, as bench/dim3.py records), and one profiled 3-D step.
 
 The line before the last is a JSON object describing each kernel (the
 wrapper call's CUDA-event time ``ms``, the kernel's own device time by
@@ -79,6 +96,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -93,6 +111,7 @@ FRAME_EVERY = 10
 BWD_GATE = 3e-6     # tests/test_autodiff.py:201, of the largest component
 GRAD_GATE = 1e-5    # rollout gradient, kernel path against the oracle path
 FORCE_GATE = 3e-7   # B1's force against its plain version, of the largest
+DV_GATE_3D = 2e-6   # tests/test_3d.py:76, of the largest component
 # Peak rates of one H100 SXM at its 700 W limit (NVIDIA's data sheet):
 # FP32 outside the tensor cores, HBM3.
 PEAK_FP32_FLOPS = 67e12
@@ -102,6 +121,12 @@ PEAK_BYTES_PER_S = 3.35e12
 B1_FLOPS_PER_PAIR = 18
 B2_FLOPS_PER_PAIR_SIDE = 29
 B3_FLOPS_PER_PAIR = 18
+# The 3-D forms by the same rule: B1 adds dz, dz*dz and its add into d2,
+# w*dz and its add into the z sum (18 + 5); B2 adds on each side uz, uz*uz
+# and its add, the z product and add of g.u, and the z gradient component
+# (mj (tt uz - s gz), four flops) and its add (29 + 10).
+B1_FLOPS_PER_PAIR_3D = 23
+B2_FLOPS_PER_PAIR_SIDE_3D = 39
 # names of each kernel's own launches in a profiler trace
 B1_TAGS = ("pair_kernel<", "pair_combine")
 B2_TAGS = ("pair_bwd_kernel", "pair_bwd_combine")
@@ -130,8 +155,9 @@ def random_state(n, seed, field=1000.0):
     return pos, vel, mass, radius
 
 
-def equivalence_errors(a, b, mode):
-    """tests/test_kernels.py::assert_equivalent's gates: (errors, passed)."""
+def equivalence_errors(a, b, mode, dv_gate=1e-5):
+    """tests/test_kernels.py::assert_equivalent's gates: (errors, passed).
+    tests/test_3d.py holds the 3-D dv to 2e-6 (``dv_gate``)."""
     def rel(x, y):
         return float((x - y).abs().max() / max(float(y.abs().max()), 1e-30))
 
@@ -148,7 +174,7 @@ def equivalence_errors(a, b, mode):
         ok &= err["parent_equal"]
     if mode == "elastic":
         err["dv_rel"] = rel(a.dv, b.dv)
-        ok &= err["dv_rel"] < 1e-5
+        ok &= err["dv_rel"] < dv_gate
     return err, ok
 
 
@@ -228,7 +254,13 @@ def phase_tie_across_splits(dev, n):
           f"parents {got}, want {min(ties)}; {err}")
 
 
-def phase_kernel_vs_plain(dev, default_scene):
+def phase_kernel_vs_plain(dev, states, dims=2):
+    """B1 against its plain version on ``states`` (the last is the main
+    path's scene) in ``dims`` dimensions: all four modes at eps 0 (and
+    reference and elastic at eps 25 in 3-D), the force within FORCE_GATE
+    of the largest, two calls bitwise equal, ids past 2^30, offset calls
+    over split j halves, and in 2-D a momentum tie across splits. Returns
+    the largest absolute error of channels 0-5 on the main path's call."""
     from nbodyax_torch.physics.kernels import (MODES, body_features,
                                                decode_raw,
                                                tile_accumulators_raw,
@@ -236,69 +268,78 @@ def phase_kernel_vs_plain(dev, default_scene):
     from nbodyax_torch.physics.pairwise import combine_accumulators
 
     max_abs_err = None
-    for arrays in (random_state(300, 300), default_scene):
+    label = "kernel" if dims == 2 else "3-D kernel"
+    dv_gate = 1e-5 if dims == 2 else DV_GATE_3D
+    cases = [(mode, 0.0) for mode in MODES]
+    if dims == 3:
+        cases += [("reference", 25.0), ("elastic", 25.0)]
+    for arrays in states:
         pos, vel, mass, radius = (torch.from_numpy(x).to(dev) for x in arrays)
         n = pos.shape[0]
         feats = body_features(pos, vel, mass, radius)
         alive = mass > 0
-        for mode in MODES:
-            kw = dict(mode=mode, eps=0.0, growth_rate=0.1)
+        for mode, eps in cases:
+            kw = dict(mode=mode, eps=eps, growth_rate=0.1, dim=dims)
             rk, pk = tile_accumulators_raw(feats, feats, 0, 0, **kw)
             rp, pp = tile_accumulators_raw_reference(feats, feats, 0, 0, **kw)
-            a = decode_raw(rk, pk, 0, mass, mode)
-            b = decode_raw(rp, pp, 0, mass, mode)
-            err, ok = equivalence_errors(a, b, mode)
-            print(f"kernel vs plain N={n} {mode}: {json.dumps(err)}")
-            check(ok, f"kernel disagrees with its plain version at N={n} "
-                      f"mode={mode}: {err}")
+            a = decode_raw(rk, pk, 0, mass, mode, dim=dims)
+            b = decode_raw(rp, pp, 0, mass, mode, dim=dims)
+            err, ok = equivalence_errors(a, b, mode, dv_gate)
+            print(f"{label} vs plain N={n} {mode} eps={eps}: "
+                  f"{json.dumps(err)}")
+            check(ok, f"{label} disagrees with its plain version at N={n} "
+                      f"mode={mode} eps={eps}: {err}")
             check(err["force_rel"] < FORCE_GATE, f"force at N={n} {mode}: "
                   f"{err['force_rel']} of the largest (gate {FORCE_GATE})")
             # two calls, bit for bit (at N = 16,384 the partners are split)
             rk2, pk2 = tile_accumulators_raw(feats, feats, 0, 0, **kw)
             same = torch.equal(rk, rk2) and (
                 pk is None or torch.equal(pk, pk2))
-            print(f"kernel N={n} {mode}: two calls bitwise equal: {same}")
-            check(same, f"kernel N={n} {mode}: two calls differ")
-            if mode in ("reference", "momentum"):
+            print(f"{label} N={n} {mode} eps={eps}: two calls bitwise "
+                  f"equal: {same}")
+            check(same, f"{label} N={n} {mode}: two calls differ")
+            if mode in ("reference", "momentum") and eps == 0.0:
                 # ids past 2^24, where an f32 id would round: shifting
                 # every id by one base changes only the parents, by it
                 base = (1 << 30) + 3
                 rb, pb = tile_accumulators_raw(feats, feats, base, base, **kw)
-                kb = decode_raw(rb, pb, base, mass, mode)
+                kb = decode_raw(rb, pb, base, mass, mode, dim=dims)
                 same = (torch.equal(rb, rk)
                         and torch.equal(kb.parent, a.parent + base))
-                print(f"kernel N={n} {mode} at ids from {base}: channels "
+                print(f"{label} N={n} {mode} at ids from {base}: channels "
                       f"and shifted parents exact: {same}")
-                check(same, f"kernel N={n} {mode} with large ids differs")
-            if arrays is default_scene and mode == "reference":
+                check(same, f"{label} N={n} {mode} with large ids differs")
+            if arrays is states[-1] and (mode, eps) == ("reference", 0.0):
                 # the main path's call: raw channels 0-5 of the live rows
                 max_abs_err = float((rk[alive, :6] - rp[alive, :6])
                                     .abs().max())
         # offset calls: an i range against the two j halves, combined,
         # equals the full pass (the building block of split and ring paths)
         i0, i1, half = n // 4, n // 2, n // 2
-        for mode in ("momentum", "reference"):
-            kw = dict(mode=mode, eps=0.0, growth_rate=0.1)
+        for mode in ("momentum", "reference", "elastic"):
+            kw = dict(mode=mode, eps=0.0, growth_rate=0.1, dim=dims)
             fi = feats[i0:i1]
             parts = []
             for j0, j1 in ((0, half), (half, n)):
                 rk, pk = tile_accumulators_raw(fi, feats[j0:j1], i0, j0, **kw)
                 rp, pp = tile_accumulators_raw_reference(
                     fi, feats[j0:j1], i0, j0, **kw)
-                ka = decode_raw(rk, pk, i0, mass[i0:i1], mode)
-                pa = decode_raw(rp, pp, i0, mass[i0:i1], mode)
-                err, ok = equivalence_errors(ka, pa, mode)
+                ka = decode_raw(rk, pk, i0, mass[i0:i1], mode, dim=dims)
+                pa = decode_raw(rp, pp, i0, mass[i0:i1], mode, dim=dims)
+                err, ok = equivalence_errors(ka, pa, mode, dv_gate)
                 check(ok, f"offset call j[{j0}:{j1}] N={n} {mode}: {err}")
                 parts.append(ka)
             combined = combine_accumulators(*parts)
             rf, pf = tile_accumulators_raw(feats, feats, 0, 0, **kw)
-            full = decode_raw(rf, pf, 0, mass, mode)
+            full = decode_raw(rf, pf, 0, mass, mode, dim=dims)
             full = type(full)(*(x[i0:i1] for x in full))
-            err, ok = equivalence_errors(combined, full, mode)
-            print(f"offset halves vs full N={n} {mode}: {json.dumps(err)}")
+            err, ok = equivalence_errors(combined, full, mode, dv_gate)
+            print(f"{label} offset halves vs full N={n} {mode}: "
+                  f"{json.dumps(err)}")
             check(ok, f"offset halves disagree with the full pass at N={n} "
                       f"mode={mode}: {err}")
-    phase_tie_across_splits(dev, default_scene[0].shape[0])
+    if dims == 2:
+        phase_tie_across_splits(dev, states[-1][0].shape[0])
     return max_abs_err
 
 
@@ -363,9 +404,11 @@ def phase_golden(dev, default_cfg):
           f"{d:.3e})")
 
 
-def phase_main_path(steps=STEPS, integrator="euler"):
-    """The CLI on the default config; each step must launch the forward
-    kernel once a force pass (euler 1, leapfrog 2)."""
+def phase_main_path(steps=STEPS, integrator="euler", dims=2):
+    """The CLI on the default config (with ``--set dimensions=3`` when
+    ``dims`` is 3); each step must launch the forward kernel once a force
+    pass (euler 1, leapfrog 2), and in 3-D every log line carries
+    ``momentum_z``."""
     from nbodyax_torch import cli
     from nbodyax_torch.physics.kernels import tile_accumulators_raw
 
@@ -382,7 +425,8 @@ def phase_main_path(steps=STEPS, integrator="euler"):
             with contextlib.redirect_stdout(buf):
                 rc = cli.main(["--steps", str(steps), "--set",
                                f"imagePath={frames_dir}", "--set",
-                               f"integrator={integrator}"])
+                               f"integrator={integrator}", "--set",
+                               f"dimensions={dims}"])
             launches = tile_accumulators_raw.launches
         finally:
             os.chdir(cwd)
@@ -400,6 +444,9 @@ def phase_main_path(steps=STEPS, integrator="euler"):
         check(all(np.isfinite(v) for v in last.values()
                   if isinstance(v, float)), f"non-finite log values: {last}")
         check(0 < last["alive"] <= 16384, f"alive count {last['alive']}")
+        if dims == 3:
+            check(all("momentum_z" in rec for rec in logs),
+                  "a 3-D log line without momentum_z")
         want = [f"iteration_{j}.ppm" for j in range(0, steps, FRAME_EVERY)]
         got = sorted(os.listdir(frames_dir),
                      key=lambda s: int(s.split("_")[1].split(".")[0]))
@@ -414,8 +461,11 @@ def phase_main_path(steps=STEPS, integrator="euler"):
             body = np.frombuffer(raw[len(header):], np.uint8)
             check((body == 0).any() and (body == 254).any(),
                   f"{name} has no bodies or no background")
-    print(f"main path ({integrator}): {steps} steps, {len(want)} P5 frames, "
-          f"{launches} kernel launches, {taken[0]}, {last['alive']} alive")
+    extra = (f", momentum_z {last['momentum_z']:.6g} in every log line"
+             if dims == 3 else "")
+    print(f"main path ({dims}-D, {integrator}): {steps} steps, {len(want)} "
+          f"P5 frames, {launches} kernel launches, {taken[0]}, "
+          f"{last['alive']} alive{extra}")
     print(f"main path rates (device-timed): {last['steps_per_sec']:.6g} "
           f"steps/s, {last['pairs_per_sec']:.6g} pairs/s")
     return launches
@@ -619,7 +669,10 @@ def cotangent(n, dev):
     return torch.from_numpy(g).to(dev)
 
 
-def phase_bwd_vs_plain(dev, default_scene):
+def phase_bwd_vs_plain(dev, states, dims=2):
+    """B2 against its plain version on ``states`` (the last is the main
+    path's scene) in ``dims`` dimensions. Returns the largest absolute
+    error on the main path's scene in reference mode."""
     from nbodyax_torch.physics.kernels import (MODES, body_features,
                                                tile_accumulators_raw)
     from nbodyax_torch.physics.kernels_bwd import (raw_backward,
@@ -632,16 +685,17 @@ def phase_bwd_vs_plain(dev, default_scene):
 
     max_abs_err = None
     cases = [(mode, 0.0) for mode in MODES] + [("elastic", 5.0)]
-    for arrays in (random_state(300, 300), default_scene):
+    label = "backward kernel" + (" (3-D)" if dims == 3 else "")
+    for arrays in states:
         pos, vel, mass, radius = (torch.from_numpy(x).to(dev) for x in arrays)
         n = pos.shape[0]
         feats = body_features(pos, vel, mass, radius)
         g = cotangent(n, dev)
         for mode, eps in cases:
-            kw = dict(mode=mode, eps=eps, growth_rate=0.1)
+            kw = dict(mode=mode, eps=eps, growth_rate=0.1, dim=dims)
             got, want = both(feats, feats, 0, 0, g, kw)
             err = bwd_errors(got, want)
-            print(f"backward kernel vs plain N={n} {mode} eps={eps}: "
+            print(f"{label} vs plain N={n} {mode} eps={eps}: "
                   f"d_feats_i {err[0]:.3e}, d_feats_j {err[1]:.3e}")
             check(all(bool(torch.isfinite(x).all()) for x in got),
                   f"backward kernel: non-finite gradient N={n} {mode}")
@@ -650,17 +704,17 @@ def phase_bwd_vs_plain(dev, default_scene):
             # two calls, bit for bit (at N = 16,384 the partners are split)
             again, _ = both(feats, feats, 0, 0, g, kw)
             same = all(torch.equal(a, b) for a, b in zip(got, again))
-            print(f"backward kernel N={n} {mode} eps={eps}: two calls "
+            print(f"{label} N={n} {mode} eps={eps}: two calls "
                   f"bitwise equal: {same}")
-            check(same, f"backward kernel N={n} {mode}: calls differ")
-            if arrays is default_scene and (mode, eps) == ("reference", 0.0):
+            check(same, f"{label} N={n} {mode}: calls differ")
+            if arrays is states[-1] and (mode, eps) == ("reference", 0.0):
                 max_abs_err = max(float((a - b).abs().max())
                                   for a, b in zip(got, want))
         # an i range against the two j halves: each call matches the plain
         # version, and the halves' d_feats_i sum to the full call's
         i0, i1, half = n // 4, n // 2, n // 2
         for mode in ("reference", "momentum"):
-            kw = dict(mode=mode, eps=0.0, growth_rate=0.1)
+            kw = dict(mode=mode, eps=0.0, growth_rate=0.1, dim=dims)
             fi, gi = feats[i0:i1], g[i0:i1]
             d_fi = 0
             for j0, j1 in ((0, half), (half, n)):
@@ -671,17 +725,19 @@ def phase_bwd_vs_plain(dev, default_scene):
                 d_fi = d_fi + got[0]
             full, _ = both(fi, feats, i0, 0, gi, kw)
             err = bwd_errors((d_fi,), (full[0],))[0]
-            print(f"backward offset halves vs full N={n} {mode}: {err:.3e}")
+            print(f"{label} offset halves vs full N={n} {mode}: "
+                  f"{err:.3e}")
             check(err < BWD_GATE, f"backward halves disagree with the full "
                   f"call at N={n} mode={mode}: {err}")
     return max_abs_err
 
 
-def grad_config(integrator):
+def grad_config(integrator, dims=2):
     """bench/grad_step.py's settings on the default scene."""
     from nbodyax_torch.config import SimConfig
     return SimConfig(collision_mode="reference", softening=100.0,
-                     integrator=integrator, save_images=False)
+                     integrator=integrator, save_images=False,
+                     dimensions=dims)
 
 
 def terminal_loss(s):
@@ -707,16 +763,18 @@ def rollout_grads(state, cfg, backend, steps):
     return torch.autograd.grad(loss, (pos, mass))
 
 
-def phase_grad_path(state):
+def phase_grad_path(state, runs=(("euler", 4, 1), ("leapfrog", 2, 2))):
     """The differentiable path at full width, through the kernels and
-    through autograd of the torch oracle. Returns the backward kernel's
-    launch count in the euler run."""
+    through autograd of the torch oracle, for each (integrator, steps,
+    force passes a step) of ``runs``, in the state's dimensions. Returns
+    the backward kernel's launch count in the euler run."""
     from nbodyax_torch.physics.kernels import tile_accumulators_raw
     from nbodyax_torch.physics.kernels_bwd import raw_backward
 
     b2_launches = None
-    for integrator, steps, passes in (("euler", 4, 1), ("leapfrog", 2, 2)):
-        cfg = grad_config(integrator)
+    dims = state.pos.shape[-1]
+    for integrator, steps, passes in runs:
+        cfg = grad_config(integrator, dims)
         tile_accumulators_raw.launches = 0
         raw_backward.launches = 0
         gk = rollout_grads(state, cfg, "pallas", steps)
@@ -738,8 +796,9 @@ def phase_grad_path(state):
                   f"{integrator} rollout gradient w.r.t. {name}: zero or "
                   f"non-finite")
         errs = bwd_errors(gk, go)
-        print(f"rollout gradient N={state.capacity}, {steps} {integrator} "
-              f"steps, kernels vs oracle autograd: pos {errs[0]:.3e}, mass "
+        print(f"rollout gradient {dims}-D N={state.capacity}, {steps} "
+              f"{integrator} steps, kernels vs oracle autograd: pos "
+              f"{errs[0]:.3e}, mass "
               f"{errs[1]:.3e} of the largest component (gate {GRAD_GATE}); "
               f"{b1} forward, {b2} backward launches")
         check(max(errs) < GRAD_GATE, f"{integrator} rollout gradient: "
@@ -1298,6 +1357,194 @@ def slotpack_tail(dev, levels, S):
           f"{got['crowded'] / got['uniform']:.3f}")
 
 
+# ---------------------------------------------------------------------------
+# dimensions=3 on the exact path: the 3-D forms of B1 and B2
+# ---------------------------------------------------------------------------
+
+def random_state_3d(n, seed, field=300.0):
+    """tests/test_3d.py's random_state_3d, at a field of 300 so that the
+    3-D overlaps are dense: slot 7 dead, radii 5-60."""
+    rng = np.random.RandomState(seed)
+    pos = rng.uniform(-field, field, (n, 3)).astype(np.float32)
+    vel = rng.uniform(-3, 3, (n, 3)).astype(np.float32)
+    mass = rng.uniform(1, 100, n).astype(np.float32)
+    mass[7] = 0.0
+    radius = rng.uniform(5, 60, n).astype(np.float32)
+    return pos, vel, mass, radius
+
+
+def default_scene_3d(n=None):
+    """The built-in config with dimensions=3 (N = 16,384 unless ``n``):
+    its config and its scene as numpy arrays (the port's 3-D uniform
+    scene, a torch.Generator draw from the seed)."""
+    from nbodyax_torch.config import SimConfig
+    from nbodyax_torch.scenes import init_scene
+    cfg = SimConfig(dimensions=3)
+    if n is not None:
+        cfg.particle_count = n
+    st = init_scene(cfg, device="cpu")
+    return cfg, [x.numpy().copy() for x in st[:4]]
+
+
+def phase_planar_3d(dev, scene2d):
+    """A 3-D call on the z = 0 copy of the 2-D default scene: the same
+    merge decisions as the 2-D call, xy force within FORCE_GATE, z exactly
+    0; bit for bit where the two forms pick the same splits, which the
+    second call of each mode (all rows against the first 300 partners,
+    one split in either form) makes sure of."""
+    from nbodyax_torch.physics.kernels import (MODES, body_features,
+                                               decode_raw, forward_splits,
+                                               tile_accumulators_raw)
+    pos, vel, mass, radius = (torch.from_numpy(x).to(dev) for x in scene2d)
+    n = pos.shape[0]
+    z = torch.zeros((n, 1), device=dev)
+    f2 = body_features(pos, vel, mass, radius)
+    f3 = body_features(torch.cat([pos, z], 1), torch.cat([vel, z], 1), mass,
+                       radius)
+    for mode, nj in ((m, k) for m in MODES for k in (n, 300)):
+        kw = dict(mode=mode, eps=0.0, growth_rate=0.1)
+        a2 = decode_raw(*tile_accumulators_raw(f2, f2[:nj], 0, 0, **kw), 0,
+                        mass, mode)
+        a3 = decode_raw(*tile_accumulators_raw(f3, f3[:nj], 0, 0, dim=3,
+                                               **kw), 0, mass, mode, dim=3)
+        splits = (forward_splits(n, nj, mode, dev),
+                  forward_splits(n, nj, mode, dev, dim=3))
+        decisions = (torch.equal(a3.died, a2.died)
+                     and torch.equal(a3.parent, a2.parent)
+                     and torch.equal(a3.best_mass, a2.best_mass))
+        zero_z = not (a3.force[:, 2].any() or a3.dv[:, 2].any())
+        frel = float((a3.force[:, :2] - a2.force).abs().max()
+                     / a2.force.abs().max())
+        pairs = ((a3.force[:, :2], a2.force), (a3.dv[:, :2], a2.dv),
+                 (a3.gained_mass, a2.gained_mass),
+                 (a3.gained_radius, a2.gained_radius))
+        bitwise = all(torch.equal(x, y) for x, y in pairs)
+        print(f"planar 3-D vs 2-D {n} x {nj} {mode}: splits {splits}, "
+              f"decisions "
+              f"equal {decisions}, z zero {zero_z}, xy force {frel:.3e} of "
+              f"the largest, bitwise {bitwise}")
+        check(decisions and zero_z and frel < FORCE_GATE,
+              f"planar 3-D call differs from the 2-D call in {mode}")
+        check(bitwise or splits[0] != splits[1], f"planar 3-D call not "
+              f"bitwise equal to the 2-D call at the same splits ({mode})")
+        check(nj == n or splits == (1, 1), f"{n} x {nj}: splits {splits}")
+
+
+def phase_timing_3d(dev, scene2d, scene3d, cfg3):
+    """B1 and B2 in 3-D at N = 16,384 beside their 2-D calls and the 3-D
+    plain versions (turns plain, 2-D, 3-D, 3-D, 2-D, plain), device time
+    by the profiler; B1 alone at N = 1,048,576 in 3-D and 2-D; one
+    profiled 3-D default-scene step. Returns the kernels-line entries of
+    B1 and B2 in 3-D."""
+    from nbodyax_torch.backends import build_accum_fn
+    from nbodyax_torch.physics.kernels import (body_features,
+                                               forward_splits,
+                                               tile_accumulators_raw,
+                                               tile_accumulators_raw_reference)
+    from nbodyax_torch.physics.kernels_bwd import (backward_splits,
+                                                   raw_backward,
+                                                   raw_backward_reference)
+    from nbodyax_torch.physics.step import PhysicsParams, make_step
+    from nbodyax_torch.scenes import init_scene
+
+    f2 = body_features(*(torch.from_numpy(x).to(dev) for x in scene2d))
+    f3 = body_features(*(torch.from_numpy(x).to(dev) for x in scene3d))
+    n = f3.shape[0]
+    g = cotangent(n, dev)
+    kw = dict(mode="reference", eps=0.0, growth_rate=0.1)
+    fwd = {"plain": lambda: tile_accumulators_raw_reference(
+               f3, f3, 0, 0, dim=3, **kw),
+           "2-D": lambda: tile_accumulators_raw(f2, f2, 0, 0, **kw),
+           "3-D": lambda: tile_accumulators_raw(f3, f3, 0, 0, dim=3, **kw)}
+    bwd = {"plain": lambda: raw_backward_reference(f3, f3, 0, 0, None, g,
+                                                   dim=3, **kw),
+           "2-D": lambda: raw_backward(f2, f2, 0, 0, None, g, **kw),
+           "3-D": lambda: raw_backward(f3, f3, 0, 0, None, g, dim=3, **kw)}
+    out = {}
+    for name, fns, reps, tags, flops, nbytes, splits in (
+            ("B1", fwd, 20, B1_TAGS, n * n * B1_FLOPS_PER_PAIR_3D,
+             3 * n * 32, forward_splits(n, n, "reference", dev, dim=3)),
+            ("B2", bwd, 10, B2_TAGS, 2 * n * n * B2_FLOPS_PER_PAIR_SIDE_3D,
+             5 * n * 32, backward_splits(n, n, "reference", dev, 3))):
+        times = {k: [] for k in fns}
+        for k in ("plain", "2-D", "3-D", "3-D", "2-D", "plain"):
+            times[k].append(time_ms(fns[k], reps=reps))
+        ms = {k: float(np.mean(v)) for k, v in times.items()}
+        print(f"{name} N={n} reference mode, CUDA events: 3-D {times['3-D']}"
+              f" ms, 2-D {times['2-D']} ms, 3-D plain {times['plain']} ms")
+        bound = bound_ms(flops, nbytes)
+        report_split_call(f"{name} 3-D", n, ms["3-D"], splits,
+                          cuda_launches(fns["3-D"]), bound)
+        dms3 = report_device(f"{name} 3-D", n, fns["3-D"], tags, ms["3-D"],
+                             bound, reps=reps)
+        dms2, _ = device_ms(fns["2-D"], tags, reps)
+        print(f"{name} N={n}: device time 3-D {dms3:.4f} ms, 2-D "
+              f"{dms2:.4f} ms in the same run, ratio 3-D / 2-D "
+              f"{dms3 / dms2:.4f}")
+        out[name] = {"ms": ms["3-D"], "device_ms": dms3,
+                     "plain_ms": ms["plain"], "library_ms": None,
+                     "bound": bound}
+
+    # B1 alone at bench/dim3.py's size: the 3-D scene at N = 1M and its xy
+    # projection, as bench/dim3.py records pairs/s and their ratio
+    _, big = default_scene_3d(1 << 20)
+    b3 = body_features(*(torch.from_numpy(x).to(dev) for x in big))
+    b2 = body_features(*(torch.from_numpy(x[:, :2] if x.ndim == 2 else x)
+                         .to(dev) for x in big))
+    nb = b3.shape[0]
+    pps = {}
+    for label, feats, dim in (("2-D", b2, 2), ("3-D", b3, 3)):
+        def call():
+            return tile_accumulators_raw(feats, feats, 0, 0, dim=dim, **kw)
+        ms = time_ms(call, reps=2)
+        pps[label] = nb * nb / (ms / 1e3)
+        flops = B1_FLOPS_PER_PAIR_3D if dim == 3 else B1_FLOPS_PER_PAIR
+        report_split_call(f"B1 alone {label}", nb, ms,
+                          forward_splits(nb, nb, "reference", dev, dim=dim),
+                          "1 call", bound_ms(nb * nb * flops, 3 * nb * 32))
+    print(f"B1 N={nb}: pairs/s 3-D {pps['3-D']:.6g}, 2-D {pps['2-D']:.6g}, "
+          f"ratio_3d_over_2d {pps['3-D'] / pps['2-D']:.4f}")
+    del b2, b3
+
+    p = PhysicsParams.from_config(cfg3)
+    step = make_step(p, accum_fn=build_accum_fn("pallas", p, dev))
+    state = init_scene(cfg3, device=dev)
+    profile_breakdown(lambda: step(state), 50,
+                      f"3-D default scene step N={n} (no frame)")
+    return out
+
+
+def kernel_name(mangled):
+    """``name<template args>`` of a kernel in an anonymous namespace, from
+    its mangled name (the mangled name itself otherwise)."""
+    m = re.match(r"_ZN(\d+)", mangled)
+    if not m or not mangled[m.end():].startswith("_GLOBAL__N"):
+        return mangled
+    rest = mangled[m.end() + int(m.group(1)):]      # past the namespace
+    m = re.match(r"\d+", rest)
+    if not m:
+        return mangled
+    rest = rest[m.end():]
+    name = rest[:int(m.group(0))]
+    t = re.match(r"I((?:L[ib]\d+E)+)E", rest[len(name):])
+    args = re.findall(r"L[ib](\d+)E", t.group(1)) if t else []
+    return name + (f"<{','.join(args)}>" if args else "")
+
+
+def ptxas_report(log):
+    """ptxas's registers and spills for each kernel of a build log, one
+    line a kernel."""
+    rows, name = [], None
+    for line in (log or "").splitlines():
+        if "Compiling entry function '" in line:
+            name = kernel_name(line.split("'")[1])
+        elif name and "spill stores" in line:
+            rows.append(f"{name}: {line.strip()}")
+        elif name and "Used" in line and rows:
+            rows[-1] += "; " + line.split(":", 1)[-1].strip().split(",")[0]
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this needs a CUDA card")
@@ -1323,11 +1570,10 @@ def main() -> int:
     print(f"kernel builds + load: {time.perf_counter() - t0:.3f} s "
           f"({', '.join(src.name for src in _build.SOURCES)})")
     for src in (s.name for s in _build.SOURCES):
-        log = _build.build_log(src)
-        used = [l.split(":", 1)[-1].strip() for l in (log or "").splitlines()
-                if "Used" in l or "spill" in l]
-        print(f"ptxas, {src}: " + ("; ".join(used) if used else
-                                   "no report (library built elsewhere)"))
+        rows = ptxas_report(_build.build_log(src))
+        print(f"ptxas, {src}:" + ("".join(f"\n  {r}" for r in rows) if rows
+                                  else " no report (library built "
+                                  "elsewhere)"))
 
     cfg = SimConfig()
     scene = list(scene_arrays(cfg.seed, cfg.particle_count, cfg.field_width,
@@ -1337,11 +1583,12 @@ def main() -> int:
     scene[2] = scene[2].copy()
     scene[2][7] = 0.0   # one dead slot
 
-    max_abs_err = phase_kernel_vs_plain(dev, scene)
+    max_abs_err = phase_kernel_vs_plain(dev, (random_state(300, 300), scene))
     phase_golden(dev, cfg)
     launches = phase_main_path()
     ms, b1_dev_ms, plain_ms, b1_bound_ = phase_timing(dev, scene, cfg)
-    bwd_max_abs_err = phase_bwd_vs_plain(dev, scene)
+    bwd_max_abs_err = phase_bwd_vs_plain(dev, (random_state(300, 300),
+                                                scene))
     default_state = init_scene(cfg, device=dev)
     bwd_launches = phase_grad_path(default_state)
     phase_shooting(dev)
@@ -1356,6 +1603,18 @@ def main() -> int:
     b3_launches, b5_launches = phase_bh_main_path(bh_cfg)
     b4_launches = phase_bh_direct()
     bh_times = phase_bh_timing(dev, arrays_1m, bh_cfg)
+
+    cfg3, scene3d = default_scene_3d()
+    scene3d[2][7] = 0.0   # one dead slot
+    b1_3d_err = phase_kernel_vs_plain(dev, (random_state_3d(300, 300),
+                                            scene3d), dims=3)
+    phase_planar_3d(dev, scene)
+    b2_3d_err = phase_bwd_vs_plain(dev, (random_state_3d(300, 300), scene3d),
+                                   dims=3)
+    launches_3d = phase_main_path(dims=3)
+    bwd_launches_3d = phase_grad_path(init_scene(cfg3, device=dev),
+                                      runs=(("euler", 4, 1),))
+    times_3d = phase_timing_3d(dev, scene, scene3d, cfg3)
     loaded = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jaxlib", "nbodyax")]
     check(not loaded, f"the port loaded JAX or nbodyax: {loaded[:5]}")
@@ -1376,7 +1635,12 @@ def main() -> int:
          b4_max_abs_err, bh_times["B4"]),
         ("slot_pack_moments_kernel", "slotpack_kernel.cu",
          "nbodyax/physics/slotpack_pallas.py:123", b5_launches,
-         b5_max_abs_err, bh_times["B5"])]
+         b5_max_abs_err, bh_times["B5"]),
+        ("pair_kernel_3d", "pair_kernel.cu", "nbodyax/physics/kernels.py:92",
+         launches_3d, b1_3d_err, times_3d["B1"]),
+        ("pair_bwd_kernel_3d", "pair_bwd_kernel.cu",
+         "nbodyax/physics/kernels_bwd.py:79", bwd_launches_3d, b2_3d_err,
+         times_3d["B2"])]
     print(smi)
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": f"nbodyax_torch/csrc/{src}",

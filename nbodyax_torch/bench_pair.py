@@ -12,7 +12,13 @@ seed 1024, body 7 dead, reference mode, eps 0):
 - the forward kernel B1 (``tile_accumulators_raw``), one call;
 - the backward kernel B2 (``raw_backward``), one call, both sides;
 - one gradient step of a 4-step euler rollout with remat (softening 100,
-  the terminal loss of bench/grad_step.py) and one forward step.
+  the terminal loss of bench/grad_step.py) and one forward step;
+- where the checkout has them, B1 and B2 in 3-D on the default config's
+  3-D scene (``dimensions=3``, body 7 dead).
+
+Each turn also hashes what B1 and B2 return in 2-D, in all four modes, at
+N = 16,384 and on its first 300 rows (``digest``), so the summary says
+whether the two checkouts' kernels give the same results bit for bit.
 
 It prints the card's name and power limit, one JSON line a turn and a
 summary line with the mean of each side. Needs a CUDA card.
@@ -20,6 +26,8 @@ summary line with the mean of each side. Needs a CUDA card.
 
 from __future__ import annotations
 
+import hashlib
+import inspect
 import json
 import os
 import subprocess
@@ -40,6 +48,22 @@ def _time_ms(fn, reps):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _digest(feats, g, forward, backward) -> str:
+    """sha256 of B1's raw channels and parents and B2's gradients in 2-D,
+    all four modes, eps 0, at every size of ``feats`` and its first 300
+    rows."""
+    h = hashlib.sha256()
+    for f, gf in ((feats, g), (feats[:300], g[:300])):
+        for mode in ("reference", "momentum", "elastic", "none"):
+            kw = dict(mode=mode, eps=0.0, growth_rate=0.1)
+            raw, par = forward(f, f, 0, 0, **kw)
+            outs = [raw] + ([par] if par is not None else [])
+            outs += list(backward(f, f, 0, 0, par, gf, **kw))
+            for t in outs:
+                h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def _one(root: str) -> dict:
@@ -79,7 +103,8 @@ def _one(root: str) -> dict:
     g = torch.from_numpy(np.random.RandomState(n).standard_normal((n, 8))
                          .astype(np.float32)).to(dev)
     kw = dict(mode="reference", eps=0.0, growth_rate=0.1)
-    out = {"root": root, "n": n}
+    out = {"root": root, "n": n,
+           "digest": _digest(feats, g, tile_accumulators_raw, raw_backward)}
     out["b1_ms"] = _time_ms(
         lambda: tile_accumulators_raw(feats, feats, 0, 0, **kw), 50)
     out["b2_ms"] = _time_ms(
@@ -103,6 +128,16 @@ def _one(root: str) -> dict:
 
     out["forward_step_ms"] = _time_ms(lambda: step(state), 20)
     out["grad_step_ms"] = _time_ms(grad, 5) / 4
+
+    if "dim" in inspect.signature(tile_accumulators_raw).parameters:
+        st3 = init_scene(SimConfig(dimensions=3), device=dev)
+        mass3 = st3.mass.clone()
+        mass3[7] = 0.0
+        f3 = body_features(st3.pos, st3.vel, mass3, st3.radius)
+        out["b1_3d_ms"] = _time_ms(
+            lambda: tile_accumulators_raw(f3, f3, 0, 0, dim=3, **kw), 50)
+        out["b2_3d_ms"] = _time_ms(
+            lambda: raw_backward(f3, f3, 0, 0, None, g, dim=3, **kw), 20)
     return out
 
 
@@ -139,15 +174,20 @@ def run_turns(argv, script, one, doc, keys) -> int:
         rec = json.loads(proc.stdout.strip().splitlines()[-1])
         runs[side].append(rec)
         print(side, json.dumps(rec))
-    print(json.dumps({side: {k: sum(r[k] for r in rs) / len(rs)
-                             for k in keys} for side, rs in runs.items()}))
+    print(json.dumps({side: {k: sum(r[k] for r in rs if k in r)
+                             / sum(k in r for r in rs)
+                             for k in keys if any(k in r for r in rs)}
+                      for side, rs in runs.items()}))
+    digests = {r.get("digest") for rs in runs.values() for r in rs}
+    if digests != {None}:
+        print(json.dumps({"outputs_bitwise_equal": len(digests) == 1}))
     return 0
 
 
 def main(argv=None) -> int:
     return run_turns(sys.argv[1:] if argv is None else argv, __file__, _one,
                      __doc__, ("b1_ms", "b2_ms", "forward_step_ms",
-                               "grad_step_ms"))
+                               "grad_step_ms", "b1_3d_ms", "b2_3d_ms"))
 
 
 if __name__ == "__main__":

@@ -23,7 +23,8 @@ from nbodyax_torch.driver import resolve_device, run_simulation
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="nbodyax_torch",
-        description="2-D n-body simulation with collisions, PyTorch + CUDA")
+        description="n-body simulation with collisions (2-D, or 3-D with "
+        "forceModel=exact), PyTorch + CUDA")
     ap.add_argument("--config", default="nbodyConfig.txt",
                     help="config file (reference nbodyConfig.txt format)")
     ap.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",

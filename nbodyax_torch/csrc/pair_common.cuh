@@ -17,7 +17,7 @@
 
 namespace nbodyax {
 
-constexpr int kFeats = 8;     // body_features row: x y vx vy m r 0 0
+constexpr int kFeats = 8;     // body_features row: pos, vel, m, r, padding
 constexpr int kCh = 8;        // output row
 constexpr int kThreads = 128;
 constexpr int kTile = 256;    // partners staged in shared memory at a time

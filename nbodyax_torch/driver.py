@@ -62,7 +62,6 @@ def _check_supported(cfg: SimConfig) -> None:
         (cfg.shards > 1, "shards > 1", "A11"),
         (cfg.force_model == "bh" and cfg.dimensions == 3,
          "forceModel=bh with dimensions=3", "A10"),
-        (cfg.dimensions == 3, "dimensions=3", "A5"),
     ]
     for unsupported, what, item in todo:
         if unsupported:
@@ -256,7 +255,8 @@ def run_simulation(cfg: SimConfig, *, device="cuda",
             since_boundary = 0
             win_wall = meter.stop(window)
             if log_due:
-                scal = scalars_from_vec(conservation_vec(state).cpu())
+                scal = scalars_from_vec(conservation_vec(state).cpu(),
+                                        cfg.dimensions)
                 if probe is not None:
                     h, new_cfg = probe.probe(cfg, state, scal["alive"], done,
                                              quiet)

@@ -21,9 +21,9 @@ __all__ = ["conservation_vec", "scalars_from_vec", "StepMeter",
 
 
 def conservation_vec(state: SimState) -> torch.Tensor:
-    """f32[6] on the state's device: alive count, total mass, kinetic
-    energy, momentum x and y, simulated time. One tensor, so a log point
-    costs one host copy."""
+    """f32[4 + D] on the state's device: alive count, total mass, kinetic
+    energy, momentum x, y (and z in 3-D), simulated time. One tensor, so a
+    log point costs one host copy."""
     alive = state.mass > 0
     m = torch.where(alive, state.mass, torch.zeros_like(state.mass))
     mom = (m[:, None] * state.vel).sum(0)
@@ -32,11 +32,16 @@ def conservation_vec(state: SimState) -> torch.Tensor:
                                    ke]), mom, state.sim_time.reshape(1)])
 
 
-def scalars_from_vec(v) -> dict:
-    """Unpack a fetched ``conservation_vec`` into the log fields."""
+def scalars_from_vec(v, dim: int) -> dict:
+    """Unpack a fetched ``conservation_vec`` of a ``dim``-D state into the
+    log fields (``nbodyax.metrics.scalars_from_vec``'s)."""
     v = np.asarray(v, dtype=np.float64)
-    return {"alive": int(v[0]), "total_mass": v[1], "momentum_x": v[3],
-            "momentum_y": v[4], "kinetic_energy": v[2], "sim_time": v[5]}
+    out = {"alive": int(v[0]), "total_mass": v[1], "momentum_x": v[3],
+           "momentum_y": v[4], "kinetic_energy": v[2]}
+    if dim == 3:
+        out["momentum_z"] = v[5]
+    out["sim_time"] = v[-1]
+    return out
 
 
 class StepMeter:

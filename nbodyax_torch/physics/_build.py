@@ -58,11 +58,11 @@ def _bind(fwd: ctypes.CDLL, bwd: ctypes.CDLL, near: ctypes.CDLL,
     fns = {}
     for lib, name, args in (
             (fwd, "nbodyax_pair_accumulators",
-             [p, i, p, i, i, i, i, f, f, i, p, p, p, p, p]),
-            (fwd, "nbodyax_pair_launch_shape", [i, ip, ip]),
+             [p, i, p, i, i, i, i, i, f, f, i, p, p, p, p, p]),
+            (fwd, "nbodyax_pair_launch_shape", [i, i, ip, ip]),
             (bwd, "nbodyax_pair_backward",
-             [p, i, p, i, i, i, p, i, f, f, i, i, p, p, p, p, p]),
-            (bwd, "nbodyax_pair_backward_launch_shape", [i, ip, ip]),
+             [p, i, p, i, i, i, p, i, i, f, f, i, i, p, p, p, p, p]),
+            (bwd, "nbodyax_pair_backward_launch_shape", [i, i, ip, ip]),
             (near, "nbodyax_slots_near",
              [p, i, i, i, i, i, i, i, f, f, p, p]),
             (near, "nbodyax_near_shared_bytes", [i, i]),

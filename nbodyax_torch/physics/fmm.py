@@ -285,7 +285,8 @@ def _m2l_level_conv(packed, s: int, ext, eps2, ring: int, dim: int,
     returns [s^dim, n_loc]. Runs in true fp32 (TF32 off). ``W`` may pass
     the level's precomputed ``_m2l_weights``. 2-D only."""
     if dim != 2:
-        raise NotImplementedError("the port's M2L convolution is 2-D only")
+        raise NotImplementedError("the port's M2L convolution is 2-D only "
+                                  "(3-D bh is ROADMAP item A10)")
     nch = packed.shape[1]
     sp = s // 2
     ks = 2 * ring + 1
@@ -360,7 +361,8 @@ def _l2l(local, sp: int, dim: int, ext, degree: int):
     2 sp): child centre offset delta = (parity - 1/2) * child cell size.
     2-D."""
     if dim != 2:
-        raise NotImplementedError("the port's L2L is 2-D only")
+        raise NotImplementedError("the port's L2L is 2-D only (3-D bh is "
+                                  "ROADMAP item A10)")
     expos, C = _shift_table(dim, degree, degree + 1, local.device)
     nl = local.shape[1]
     _, ccsz = _cell_sizes(ext, 2 * sp)

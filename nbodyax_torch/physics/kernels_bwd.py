@@ -38,6 +38,11 @@ of each merge: dL/dm_j += g_gm_i, dL/dr_j += growth g_gr_i. The died count
 and the momentum parent carry no gradient. The momentum best-mass
 cotangent goes to the mass of the saved parent, outside the kernel.
 
+Every sum over the axes runs over D = 2 or 3 (``dim``), in the layouts of
+``physics/kernels.py``: the cotangent's force channels are 0..D-1, gained
+mass and radius D and D+1, dv D..2D-1, and best mass 6; the feature
+gradients are pos[0:D], vel[D:2D], mass at 2D, radius at 2D+1.
+
 ``raw_backward`` runs the kernel for CUDA tensors, both sides (the i
 bodies as output rows, and the j bodies) in one grid, and
 ``raw_backward_reference`` for CPU tensors. ``raw_backward.launches``
@@ -58,8 +63,8 @@ from nbodyax_torch.physics.kernels import (_I32_MAX, MODES, _aligned,
 __all__ = ["raw_backward", "raw_backward_reference", "backward_splits"]
 
 
-def _check(feats_i, feats_j, g_raw, mode):
-    _check_inputs(feats_i, feats_j, mode)
+def _check(feats_i, feats_j, g_raw, mode, dim):
+    _check_inputs(feats_i, feats_j, mode, dim)
     if (g_raw.dtype != torch.float32 or g_raw.shape != feats_i.shape
             or g_raw.device != feats_i.device):
         raise ValueError(f"g_raw must be f32{tuple(feats_i.shape)} on "
@@ -67,9 +72,10 @@ def _check(feats_i, feats_j, g_raw, mode):
                          f"{tuple(g_raw.shape)} on {g_raw.device}")
 
 
-def _route_best_mass(d_fj, parent, g_raw, j_offset: int) -> None:
+def _route_best_mass(d_fj, parent, g_raw, j_offset: int, dim: int) -> None:
     """Momentum mode: d best_mass_i / d m_parent(i) = 1. Adds the best-mass
-    cotangent onto the parent's mass feature, in place; parents that are
+    cotangent (channel 6 in either dimension) onto the parent's mass
+    feature (column 2 * dim), in place; parents that are
     ``INT32_MAX`` (no candidate) or outside this j range are dropped, by
     sending them to a spare slot past the end (no host sync). ``index_put_``
     with ``accumulate`` sums by sorted index on the card, so the result
@@ -80,20 +86,21 @@ def _route_best_mass(d_fj, parent, g_raw, j_offset: int) -> None:
     tgt = torch.where(keep, tgt, torch.full_like(tgt, nj))
     dm = torch.zeros((nj + 1,), dtype=torch.float32, device=d_fj.device)
     dm.index_put_((tgt,), g_raw[:, 6], accumulate=True)
-    d_fj[:, 4] += dm[:nj]
+    d_fj[:, 2 * dim] += dm[:nj]
 
 
 def raw_backward_reference(feats_i: torch.Tensor, feats_j: torch.Tensor,
                            i_offset: int, j_offset: int, parent, g_raw, *,
                            mode: str, eps: float, growth_rate: float,
-                           chunk=None):
+                           dim: int = 2, chunk=None):
     """Plain PyTorch version of the backward kernel: the per-pair formulas
     of the module docstring as explicit tensor expressions (no autograd),
     chunked over i so the pair temporaries stay near 2^22 elements. Each
     i chunk's pair block feeds both sides: its rows sum into ``d_feats_i``,
     its columns into ``d_feats_j``. Returns ``(d_feats_i f32[Ni, 8],
     d_feats_j f32[Nj, 8])``."""
-    _check(feats_i, feats_j, g_raw, mode)
+    _check(feats_i, feats_j, g_raw, mode, dim)
+    d = dim
     dev = feats_i.device
     ni, nj = feats_i.shape[0], feats_j.shape[0]
     if chunk is None:
@@ -102,8 +109,8 @@ def raw_backward_reference(feats_i: torch.Tensor, feats_j: torch.Tensor,
     growth = _float32(growth_rate)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     one = torch.ones((), dtype=torch.float32, device=dev)
-    pj, vj = feats_j[:, 0:2], feats_j[:, 2:4]
-    mj, rj = feats_j[None, :, 4], feats_j[None, :, 5]
+    pj, vj = feats_j[:, 0:d], feats_j[:, d:2 * d]
+    mj, rj = feats_j[None, :, 2 * d], feats_j[None, :, 2 * d + 1]
     gj = (int(j_offset)
           + torch.arange(nj, dtype=torch.int32, device=dev))[None, :]
     aj = mj > 0
@@ -112,12 +119,11 @@ def raw_backward_reference(feats_i: torch.Tensor, feats_j: torch.Tensor,
     for s in range(0, ni, chunk):
         f, g = feats_i[s:s + chunk], g_raw[s:s + chunk]
         c_rows = f.shape[0]
-        mi, ri = f[:, 4:5], f[:, 5:6]
+        mi, ri = f[:, 2 * d:2 * d + 1], f[:, 2 * d + 1:2 * d + 2]
         gi = (int(i_offset) + s
               + torch.arange(c_rows, dtype=torch.int32, device=dev))[:, None]
-        ux = pj[None, :, 0] - f[:, None, 0]              # u = p_j - p_i
-        uy = pj[None, :, 1] - f[:, None, 1]
-        d2 = ux * ux + uy * uy
+        u = [pj[None, :, k] - f[:, None, k] for k in range(d)]  # p_j - p_i
+        d2 = _dot(u, u)
         rsum = ri + rj
         overlap = d2 <= rsum * rsum
         d2e = d2 + eps2
@@ -128,62 +134,65 @@ def raw_backward_reference(feats_i: torch.Tensor, feats_j: torch.Tensor,
             c = live & ~overlap & (d2e > 0)
         inv = torch.rsqrt(torch.where(c, d2e, one))
         sc = inv * inv * inv
-        gx, gy = g[:, 0:1], g[:, 1:2]
-        gdotu = gx * ux + gy * uy
+        gf = [g[:, k:k + 1] for k in range(d)]
+        gdotu = _dot(gf, u)
         t = 3.0 * (inv * inv) * sc * gdotu
-        # side i: c m_j (t u - s g); side j is its negation
-        px = torch.where(c, mj * (t * ux - sc * gx), zero)
-        py = torch.where(c, mj * (t * uy - sc * gy), zero)
         out_i, out_j = d_fi[s:s + c_rows], d_fj
-        out_i[:, 0] += px.sum(1)
-        out_i[:, 1] += py.sum(1)
-        out_j[:, 0] -= px.sum(0)
-        out_j[:, 1] -= py.sum(0)
-        out_j[:, 4] += torch.where(c, sc * gdotu, zero).sum(0)
+        for k in range(d):
+            # side i: c m_j (t u - s g); side j is its negation
+            pk = torch.where(c, mj * (t * u[k] - sc * gf[k]), zero)
+            out_i[:, k] += pk.sum(1)
+            out_j[:, k] -= pk.sum(0)
+        m_col = 2 * d                                   # the mass feature
+        out_j[:, m_col] += torch.where(c, sc * gdotu, zero).sum(0)
         if mode == "reference":
             merge = overlap & live & (mi >= mj)
-            out_j[:, 4] += torch.where(merge, g[:, 2:3], zero).sum(0)
-            out_j[:, 5] += torch.where(merge, growth * g[:, 3:4],
-                                       zero).sum(0)
+            out_j[:, m_col] += torch.where(merge, g[:, d:d + 1],
+                                           zero).sum(0)
+            out_j[:, m_col + 1] += torch.where(
+                merge, growth * g[:, d + 1:d + 2], zero).sum(0)
         elif mode == "elastic":
-            dvx = vj[None, :, 0] - f[:, None, 2]          # v_j - v_i
-            dvy = vj[None, :, 1] - f[:, None, 3]
-            vdotp = dvx * ux + dvy * uy
+            rv = [vj[None, :, k] - f[:, None, d + k]      # v_j - v_i
+                  for k in range(d)]
+            vdotp = _dot(rv, u)
             a = overlap & live & (vdotp < 0) & (d2 > 0)
             invd2 = 1.0 / torch.where(a, d2, one)
             minv = 1.0 / torch.where(a, mi + mj, one)
             recip = minv * invd2
             q = vdotp * recip
-            hx, hy = g[:, 2:3], g[:, 3:4]
-            hdotu = hx * ux + hy * uy
+            h = [g[:, d + k:d + k + 1] for k in range(d)]
+            hdotu = _dot(h, u)
             gr = hdotu * recip
-            ex = torch.where(a, mj * (gr * (dvx - (2.0 * vdotp) * ux * invd2)
-                                      + q * hx), zero)
-            ey = torch.where(a, mj * (gr * (dvy - (2.0 * vdotp) * uy * invd2)
-                                      + q * hy), zero)
-            wx = torch.where(a, mj * gr * ux, zero)
-            wy = torch.where(a, mj * gr * uy, zero)
+            for k in range(d):
+                ek = torch.where(a, mj * (gr * (rv[k] - (2.0 * vdotp) * u[k]
+                                                * invd2) + q * h[k]), zero)
+                wk = torch.where(a, mj * gr * u[k], zero)
+                out_i[:, k] -= ek.sum(1)
+                out_i[:, d + k] -= wk.sum(1)
+                out_j[:, k] += ek.sum(0)
+                out_j[:, d + k] += wk.sum(0)
             hq = torch.where(a, hdotu * q * minv, zero)
-            out_i[:, 0] -= ex.sum(1)
-            out_i[:, 1] -= ey.sum(1)
-            out_i[:, 2] -= wx.sum(1)
-            out_i[:, 3] -= wy.sum(1)
-            out_i[:, 4] -= (hq * mj).sum(1)
-            out_j[:, 0] += ex.sum(0)
-            out_j[:, 1] += ey.sum(0)
-            out_j[:, 2] += wx.sum(0)
-            out_j[:, 3] += wy.sum(0)
-            out_j[:, 4] += (hq * mi).sum(0)
+            out_i[:, m_col] -= (hq * mj).sum(1)
+            out_j[:, m_col] += (hq * mi).sum(0)
     if mode == "momentum" and parent is not None:
-        _route_best_mass(d_fj, parent, g_raw, j_offset)
+        _route_best_mass(d_fj, parent, g_raw, j_offset, d)
     return d_fi, d_fj
+
+
+def _dot(a, b):
+    """sum_k a[k] * b[k], each product rounded, summed left to right (the
+    kernel's and the oracle's order over the axes)."""
+    out = a[0] * b[0]
+    for x, y in zip(a[1:], b[1:]):
+        out = out + x * y
+    return out
 
 
 def raw_backward(feats_i: torch.Tensor, feats_j: torch.Tensor, i_offset: int,
                  j_offset: int, parent, g_raw: torch.Tensor, *, mode: str,
-                 eps: float, growth_rate: float):
+                 eps: float, growth_rate: float, dim: int = 2):
     """Full VJP of ``tile_accumulators_raw`` with respect to both feature
-    operands, in the port's row layout.
+    operands, in the port's row layout of ``dim`` dimensions.
 
     ``g_raw`` f32[Ni, 8] is the cotangent of the raw channels; ``parent``
     the forward's momentum-mode i32[Ni] (None otherwise). Returns
@@ -192,11 +201,11 @@ def raw_backward(feats_i: torch.Tensor, feats_j: torch.Tensor, i_offset: int,
     A CUDA tensor goes to the hand-written kernel, both sides in one grid;
     a CPU tensor goes to ``raw_backward_reference``.
     """
-    _check(feats_i, feats_j, g_raw, mode)
+    _check(feats_i, feats_j, g_raw, mode, dim)
     if feats_i.device.type == "cpu":
         return raw_backward_reference(
             feats_i, feats_j, i_offset, j_offset, parent, g_raw, mode=mode,
-            eps=eps, growth_rate=growth_rate)
+            eps=eps, growth_rate=growth_rate, dim=dim)
     if feats_i.device.type != "cuda":
         raise ValueError(f"no backward kernel for device {feats_i.device}")
     from nbodyax_torch.physics._build import load_library
@@ -210,7 +219,7 @@ def raw_backward(feats_i: torch.Tensor, feats_j: torch.Tensor, i_offset: int,
     dev = fi.device
     d_fi = torch.empty_like(fi)
     d_fj = torch.empty_like(fj)
-    s_i, s_j = backward_splits(ni, nj, mode, dev)
+    s_i, s_j = backward_splits(ni, nj, mode, dev, dim)
     part_i = (torch.empty((s_i, ni, 8), dtype=torch.float32, device=dev)
               if s_i > 1 else None)
     part_j = (torch.empty((s_j, nj, 8), dtype=torch.float32, device=dev)
@@ -219,7 +228,7 @@ def raw_backward(feats_i: torch.Tensor, feats_j: torch.Tensor, i_offset: int,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.nbodyax_pair_backward(
             fi.data_ptr(), ni, fj.data_ptr(), nj, i_offset, j_offset,
-            g.data_ptr(), MODES.index(mode), _eps2(eps),
+            g.data_ptr(), MODES.index(mode), dim, _eps2(eps),
             _float32(growth_rate), s_i, s_j,
             part_i.data_ptr() if part_i is not None else None,
             part_j.data_ptr() if part_j is not None else None,
@@ -229,18 +238,20 @@ def raw_backward(feats_i: torch.Tensor, feats_j: torch.Tensor, i_offset: int,
                            f"{err}")
     raw_backward.launches += 2
     if mode == "momentum" and parent is not None:
-        _route_best_mass(d_fj, parent, g, j_offset)
+        _route_best_mass(d_fj, parent, g, j_offset, dim)
     return d_fi, d_fj
 
 
 raw_backward.launches = 0
 
 
-def backward_splits(ni: int, nj: int, mode: str, dev) -> tuple[int, int]:
+def backward_splits(ni: int, nj: int, mode: str, dev,
+                    dim: int = 2) -> tuple[int, int]:
     """The partner splits ``(side i, side j)`` the backward kernel uses for
-    Ni i bodies against Nj j bodies on CUDA device ``dev``: both sides'
-    row blocks share the card."""
-    slots, rows = launch_shape("backward", mode, _index(torch.device(dev)))
+    Ni i bodies against Nj j bodies in ``dim`` dimensions on CUDA device
+    ``dev``: both sides' row blocks share the card."""
+    slots, rows = launch_shape("backward", mode, _index(torch.device(dev)),
+                               dim)
     blocks = -(-ni // rows) + -(-nj // rows)
     return (choose_splits(blocks, nj, slots),
             choose_splits(blocks, ni, slots))

@@ -119,7 +119,8 @@ def _launch(sf, starts, ends, S: int, moments):
             pos, _, ext, levels = moments
             if pos.shape[-1] != 2:
                 raise NotImplementedError(
-                    "the slot-pack moment kernel is 2-D only")
+                    "the slot-pack moment kernel is 2-D only (3-D bh is "
+                    "ROADMAP item A10)")
             g = 1 << levels
             if g * g != ncells:
                 raise ValueError(f"levels={levels} does not match the "

@@ -14,7 +14,8 @@ keeps the reference's order of operations:
 6. dead slots are frozen.
 
 ``boundaryMode=clamp`` probes with the real displacement and clamps; ``none``
-does neither. ``integrator=leapfrog`` is kick-drift-kick with a second force
+does neither. Every step works on [N, D] state, D = 2 or 3; in 3-D the z
+interval is ``fieldDepth`` (``fieldWidth`` when that is 0). ``integrator=leapfrog`` is kick-drift-kick with a second force
 pass, and ``yoshida4`` the 4th-order composition of three leapfrog substeps
 (three force passes beyond the first); both resolve collisions once, at the
 step-start pass, and run the boundary and the dead-slot freeze once, at the
@@ -48,6 +49,7 @@ class PhysicsParams:
     dt: float = 0.2
     field_width: float = 100000.0
     field_height: float = 100000.0
+    field_depth: float = 100000.0         # z half-extent (3-D runs)
     growth_rate: float = 0.1
     eps: float = 0.0
     collision_mode: str = "reference"
@@ -62,6 +64,7 @@ class PhysicsParams:
         return cls(dt=float(np.float32(cfg.timestep)),
                    field_width=float(cfg.field_width),
                    field_height=float(cfg.field_height),
+                   field_depth=float(cfg.field_depth or cfg.field_width),
                    growth_rate=float(np.float32(cfg.growth_rate)),
                    eps=float(cfg.softening),
                    collision_mode=cfg.collision_mode,
@@ -75,15 +78,17 @@ class PhysicsParams:
 AccumFn = Callable[..., PairAccumulators]
 
 
-def _limit(radius, p: PhysicsParams) -> torch.Tensor:
-    """Per-axis interval half-width ``field - r``, f32[N, 2]."""
-    return torch.stack([p.field_width - radius, p.field_height - radius], -1)
+def _limit(radius, p: PhysicsParams, dim: int) -> torch.Tensor:
+    """Per-axis interval half-width ``field - r``, f32[N, dim]: width and
+    height, and depth in 3-D."""
+    field = (p.field_width, p.field_height, p.field_depth)[:dim]
+    return torch.stack([f - radius for f in field], -1)
 
 
 def _boundary_flip(pos, vel, radius, probe_disp, p: PhysicsParams):
     """Flip velocity components where ``pos + probe_disp`` would leave
     ``[-(field - r), field - r]``."""
-    limit = _limit(radius, p)
+    limit = _limit(radius, p, pos.shape[-1])
     pred = pos + probe_disp
     out = (pred > limit) | (pred < -limit)
     if p.boundary_mode == "clamp" and p.wall_restitution != 1.0:
@@ -96,7 +101,7 @@ def _boundary_flip(pos, vel, radius, probe_disp, p: PhysicsParams):
 
 
 def _clamp_positions(pos, radius, p: PhysicsParams):
-    limit = _limit(radius, p)
+    limit = _limit(radius, p, pos.shape[-1])
     return torch.clamp(pos, -limit, limit)
 
 

@@ -21,8 +21,9 @@ __all__ = ["SimState", "make_state", "alive_mask", "alive_count", "to_numpy",
 class SimState(NamedTuple):
     """Body state as tensors on one device.
 
-    pos:      f32[N, 2]  positions (field coordinates, origin-centred)
-    vel:      f32[N, 2]  velocities
+    pos:      f32[N, D]  positions (field coordinates, origin-centred), D = 2
+                         or 3
+    vel:      f32[N, D]  velocities
     mass:     f32[N]     masses; 0 marks a dead slot
     radius:   f32[N]     radii
     step:     int        completed step count (host-side)

@@ -134,7 +134,8 @@ def test_missing_config_errors(tmp_path, capsys):
     (dict(checkpoint_every=5), "A8"), (dict(resume_from="x.npz"), "A8"),
     (dict(compact_every=5), "A8"), (dict(energy_every=10), "A8"),
     (dict(force_model="bh", dimensions=3), "A10"), (dict(shards=2), "A11"),
-    (dict(dimensions=3), "A5"), (dict(adaptive_dt=True), "A5"),
+    (dict(dimensions=3, scene="three_body"), "A3"),
+    (dict(adaptive_dt=True), "A5"),
     (dict(scene="galaxy"), "A3"),
 ])
 def test_unported_config_values_raise(override, item, tmp_path):

@@ -333,6 +333,256 @@ def test_autograd_function_on_the_card(cuda, mode):
 
 
 # ---------------------------------------------------------------------------
+# The 3-D forms of B1 and B2 (dim = 3: pos[0:3], vel[3:6], mass 6, radius 7)
+# ---------------------------------------------------------------------------
+
+def random_feats_3d(n, seed, dev, field=300.0):
+    """Dense 3-D overlaps, slot 7 dead, a run of equal-mass ties."""
+    rng = np.random.RandomState(seed)
+    pos = rng.uniform(-field, field, (n, 3)).astype(np.float32)
+    vel = rng.uniform(-3, 3, (n, 3)).astype(np.float32)
+    mass = rng.uniform(1, 100, n).astype(np.float32)
+    mass[7] = 0.0
+    radius = rng.uniform(5, 60, n).astype(np.float32)
+    mass[n // 2:n // 2 + 8] = mass[n // 2]
+    t = [torch.from_numpy(x).to(dev) for x in (pos, vel, mass, radius)]
+    return kernels.body_features(*t), t[2]
+
+
+def both_3d(feats, mass, mode, i0=0, j0=0, fi=None, mi=None, eps=0.0):
+    fi = feats if fi is None else fi
+    mi = mass if mi is None else mi
+    kw = dict(mode=mode, eps=eps, growth_rate=0.1, dim=3)
+    rk, pk = kernels.tile_accumulators_raw(fi, feats, i0, j0, **kw)
+    rp, pp = kernels.tile_accumulators_raw_reference(fi, feats, i0, j0, **kw)
+    return (kernels.decode_raw(rk, pk, i0, mi, mode, dim=3),
+            kernels.decode_raw(rp, pp, i0, mi, mode, dim=3))
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("n", [64, 300, 4099])
+def test_kernel_3d_matches_plain_version(cuda, mode, n):
+    feats, mass = random_feats_3d(n, n, cuda)
+    a, b = both_3d(feats, mass, mode)
+    assert a.force.shape == (n, 3) and a.dv.shape == (n, 3)
+    assert_equivalent(a, b, mode)
+
+
+@pytest.mark.parametrize("mode", ["reference", "elastic"])
+def test_kernel_3d_softened(cuda, mode):
+    feats, mass = random_feats_3d(500, 2, cuda)
+    assert_equivalent(*both_3d(feats, mass, mode, eps=25.0), mode)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("ni,nj", SHAPES)
+def test_kernel_3d_lopsided_and_ragged_calls(cuda, mode, ni, nj):
+    feats, mass = random_feats_3d(BIG, 11, cuda, field=2000.0)
+    kw = dict(mode=mode, eps=0.0, growth_rate=0.1, dim=3)
+    fi, fj = feats[:ni], feats[:nj]
+    rk, pk = kernels.tile_accumulators_raw(fi, fj, 0, 0, **kw)
+    rp, pp = kernels.tile_accumulators_raw_reference(fi, fj, 0, 0, **kw)
+    assert_equivalent(kernels.decode_raw(rk, pk, 0, mass[:ni], mode, dim=3),
+                      kernels.decode_raw(rp, pp, 0, mass[:ni], mode, dim=3),
+                      mode)
+
+
+@pytest.mark.parametrize("mode", ["reference", "momentum", "elastic"])
+def test_kernel_3d_offset_halves_combine_to_full(cuda, mode):
+    n, base = 1000, (1 << 30) + 3
+    feats, mass = random_feats_3d(n, 9, cuda)
+    i0, i1, half = 200, 700, 500
+    kw = dict(mode=mode, eps=0.0, growth_rate=0.1, dim=3)
+    parts = []
+    for j0, j1 in ((0, half), (half, n)):
+        raw, par = kernels.tile_accumulators_raw(
+            feats[i0:i1], feats[j0:j1], base + i0, base + j0, **kw)
+        parts.append(kernels.decode_raw(raw, par, base + i0, mass[i0:i1],
+                                        mode, dim=3))
+    combined = combine_accumulators(*parts)
+    _, full = both_3d(feats, mass, mode, i0=base, j0=base)
+    full = type(full)(*(x[i0:i1] for x in full))
+    assert_equivalent(combined, full, mode)
+
+
+def tie_state_3d(n, dev, chunk):
+    """tie_state in 3-D: the tied bodies and body 0 at the origin."""
+    rng = np.random.RandomState(4)
+    pos = rng.uniform(-1e6, 1e6, (n, 3)).astype(np.float32)
+    vel = np.zeros((n, 3), np.float32)
+    mass = rng.uniform(1, 100, n).astype(np.float32)
+    radius = np.full(n, 1.0, np.float32)
+    ties = [c for c in (chunk - 1, chunk, 2 * chunk + 5) if 0 < c < n]
+    pos[[0] + ties] = 0.0
+    mass[0] = 50.0
+    mass[ties] = 500.0
+    t = [torch.from_numpy(x).to(dev) for x in (pos, vel, mass, radius)]
+    return kernels.body_features(*t), t[2], ties
+
+
+def test_momentum_3d_tie_across_splits(cuda):
+    splits = kernels.forward_splits(BIG, BIG, "momentum", cuda, dim=3)
+    assert splits > 1
+    feats, mass, ties = tie_state_3d(BIG, cuda,
+                                     split_chunk(BIG, splits))
+    a, b = both_3d(feats, mass, "momentum")
+    assert_equivalent(a, b, "momentum")
+    assert int(a.parent[0]) == min(ties) == int(b.parent[max(ties)])
+
+
+@pytest.mark.parametrize("mode", ["reference", "momentum"])
+def test_large_offsets_3d_with_splits(cuda, mode):
+    base = (1 << 30) + 3
+    assert kernels.forward_splits(BIG, BIG, mode, cuda, dim=3) > 1
+    feats, mass = random_feats_3d(BIG, 6, cuda, field=2000.0)
+    a, b = both_3d(feats, mass, mode, i0=base, j0=base)
+    assert_equivalent(a, b, mode)
+    assert int(a.parent.min()) >= base
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_split_kernel_3d_repeats_bitwise_and_counts(cuda, mode):
+    feats, _ = random_feats_3d(BIG, 3, cuda, field=2000.0)
+    kw = dict(mode=mode, eps=0.0, growth_rate=0.1, dim=3)
+    before = kernels.tile_accumulators_raw.launches
+    r1, p1 = kernels.tile_accumulators_raw(feats, feats, 0, 0, **kw)
+    r2, p2 = kernels.tile_accumulators_raw(feats, feats, 0, 0, **kw)
+    assert kernels.tile_accumulators_raw.launches == before + 2
+    assert torch.equal(r1, r2)
+    assert (p1 is None and p2 is None) or torch.equal(p1, p2)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_kernel_3d_planar_equals_2d(cuda, mode):
+    """A 3-D call on the z = 0 copy of a 2-D state takes the same merge
+    decisions and gives the same xy force as the 2-D call; bit for bit
+    where the two forms split the partners alike."""
+    n = 4099
+    feats2, mass = random_feats(n, 13, cuda)
+    z = torch.zeros((n, 1), device=cuda)
+    pos3 = torch.cat([feats2[:, 0:2], z], 1)
+    vel3 = torch.cat([feats2[:, 2:4], z], 1)
+    feats3 = kernels.body_features(pos3, vel3, mass, feats2[:, 5])
+    kw = dict(mode=mode, eps=0.0, growth_rate=0.1)
+    r2, p2 = kernels.tile_accumulators_raw(feats2, feats2, 0, 0, **kw)
+    r3, p3 = kernels.tile_accumulators_raw(feats3, feats3, 0, 0, dim=3, **kw)
+    a2 = kernels.decode_raw(r2, p2, 0, mass, mode)
+    a3 = kernels.decode_raw(r3, p3, 0, mass, mode, dim=3)
+    assert not a3.force[:, 2].any() and not a3.dv[:, 2].any()
+    assert torch.equal(a3.died, a2.died)
+    assert torch.equal(a3.parent, a2.parent)
+    same = (kernels.forward_splits(n, n, mode, cuda)
+            == kernels.forward_splits(n, n, mode, cuda, dim=3))
+    for x3, x2 in ((a3.force[:, :2], a2.force), (a3.dv[:, :2], a2.dv),
+                   (a3.gained_mass, a2.gained_mass),
+                   (a3.gained_radius, a2.gained_radius)):
+        if same:
+            assert torch.equal(x3, x2)
+        else:
+            assert float((x3 - x2).abs().max()) <= 3e-7 * max(
+                float(x2.abs().max()), 1e-30)
+    # against 300 partners both forms take one split: bit for bit
+    r2, _ = kernels.tile_accumulators_raw(feats2, feats2[:300], 0, 0, **kw)
+    r3, _ = kernels.tile_accumulators_raw(feats3, feats3[:300], 0, 0, dim=3,
+                                          **kw)
+    assert torch.equal(r3[:, 0:2], r2[:, 0:2]) and not r3[:, 2].any()
+    assert torch.equal(r3[:, 3:6], r2[:, 2:5]) and torch.equal(r3[:, 6],
+                                                               r2[:, 6])
+
+
+def bwd_both_3d(fi, fj, i0, j0, g, mode, eps=0.0):
+    kw = dict(mode=mode, eps=eps, growth_rate=0.1, dim=3)
+    _, par = kernels.tile_accumulators_raw(fi, fj, i0, j0, **kw)
+    return (kernels_bwd.raw_backward(fi, fj, i0, j0, par, g, **kw),
+            kernels_bwd.raw_backward_reference(fi, fj, i0, j0, par, g, **kw))
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("n", [64, 300, 4099])
+def test_backward_kernel_3d_matches_plain_version(cuda, mode, n):
+    feats, _ = random_feats_3d(n, n, cuda)
+    got, want = bwd_both_3d(feats, feats, 0, 0, cotangent(n, n, cuda), mode)
+    assert_bwd_close(got, want)
+
+
+@pytest.mark.parametrize("mode", ["reference", "elastic"])
+def test_backward_kernel_3d_softened(cuda, mode):
+    feats, _ = random_feats_3d(500, 2, cuda)
+    got, want = bwd_both_3d(feats, feats, 0, 0, cotangent(500, 2, cuda),
+                            mode, eps=5.0)
+    assert_bwd_close(got, want)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_backward_3d_large_offsets_and_halves(cuda, mode):
+    n, base = 1000, (1 << 30) + 3
+    feats, _ = random_feats_3d(n, 5, cuda)
+    i0, i1, half = 200, 700, 500
+    g = cotangent(i1 - i0, 5, cuda)
+    d_fi = 0
+    for j0, j1 in ((0, half), (half, n)):
+        got, want = bwd_both_3d(feats[i0:i1], feats[j0:j1], base + i0,
+                                base + j0, g, mode)
+        assert_bwd_close(got, want)
+        d_fi = d_fi + got[0]
+    full, _ = bwd_both_3d(feats[i0:i1], feats, base + i0, base, g, mode)
+    assert_bwd_close((d_fi,), (full[0],))
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("ni,nj", SHAPES)
+def test_backward_3d_lopsided_and_ragged_calls(cuda, mode, ni, nj):
+    feats, _ = random_feats_3d(BIG, 12, cuda, field=2000.0)
+    got, want = bwd_both_3d(feats[:ni], feats[:nj], 0, 0,
+                            cotangent(ni, 12, cuda), mode)
+    assert_bwd_close(got, want)
+
+
+def test_backward_3d_momentum_tie_across_splits(cuda):
+    splits = kernels.forward_splits(BIG, BIG, "momentum", cuda, dim=3)
+    feats, _, _ = tie_state_3d(BIG, cuda, split_chunk(BIG, splits))
+    got, want = bwd_both_3d(feats, feats, 0, 0, cotangent(BIG, 8, cuda),
+                            "momentum")
+    assert_bwd_close(got, want)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_backward_3d_split_repeats_bitwise_and_counts(cuda, mode):
+    feats, _ = random_feats_3d(BIG, 3, cuda, field=2000.0)
+    g = cotangent(BIG, 3, cuda)
+    kw = dict(mode=mode, eps=0.0, growth_rate=0.1, dim=3)
+    assert max(kernels_bwd.backward_splits(BIG, BIG, mode, cuda, 3)) > 1
+    before = kernels_bwd.raw_backward.launches
+    a = kernels_bwd.raw_backward(feats, feats, 0, 0, None, g, **kw)
+    b = kernels_bwd.raw_backward(feats, feats, 0, 0, None, g, **kw)
+    assert kernels_bwd.raw_backward.launches == before + 4
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_autograd_function_3d_on_the_card(cuda, mode):
+    """3-D gradients through pair_accumulators_kernel on the card against
+    the same loss through the plain versions on the CPU."""
+    n = 700
+    feats, mass = random_feats_3d(n, 8, cuda)
+    w = cotangent(n, 9, cuda)
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        xs = [t.detach().to(dev).requires_grad_(True) for t in
+              (feats[:, 0:3], feats[:, 3:6], mass, feats[:, 7])]
+        acc = kernels.pair_accumulators_kernel(*xs, mode=mode)
+        wd = w.to(dev)
+        out = ((acc.force * wd[:, 0:3]).sum() + (acc.dv * wd[:, 3:6]).sum()
+               + (acc.gained_mass * wd[:, 6]).sum()
+               + (acc.gained_radius * wd[:, 7]).sum())
+        bm = acc.best_mass
+        out = out + (torch.where(torch.isfinite(bm), bm, 0.0)
+                     * wd[:, 6]).sum()
+        grads.append([g.cpu() for g in torch.autograd.grad(out, xs)])
+    assert_bwd_close(*grads)
+
+
+# ---------------------------------------------------------------------------
 # The bh kernels: near field B3 (csrc/near_kernel.cu), slot pack B4 and B5
 # (csrc/slotpack_kernel.cu)
 # ---------------------------------------------------------------------------

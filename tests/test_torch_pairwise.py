@@ -189,9 +189,15 @@ def test_wrapper_rejects_bad_input(bad):
             tkernels.tile_accumulators_raw(feats, feats, 0, 0, mode="bogus",
                                            eps=0.0, growth_rate=0.1)
     else:
+        # 3-D rows are taken; a dimension other than 2 or 3 is not
         z = torch.zeros((4, 3))
-        with pytest.raises(NotImplementedError):
+        f3 = tkernels.body_features(z, z, torch.ones(4), torch.ones(4))
+        tkernels.tile_accumulators_raw(f3, f3, 0, 0, dim=3, **kw)
+        z = torch.zeros((4, 4))
+        with pytest.raises(ValueError):
             tkernels.body_features(z, z, torch.ones(4), torch.ones(4))
+        with pytest.raises(ValueError):
+            tkernels.tile_accumulators_raw(feats, feats, 0, 0, dim=4, **kw)
 
 
 def test_backends_map_config_values():
