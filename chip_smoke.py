@@ -79,7 +79,33 @@ Phases, each of which exits non-zero on failure:
     scene through the kernels against autograd of the oracle, as phase 7;
 21. B1 and B2 in 3-D timed beside their 2-D calls at N = 16,384 (device
     time too), B1 alone at N = 1,048,576 in 3-D and 2-D (pairs/s and
-    their ratio, as bench/dim3.py records), and one profiled 3-D step.
+    their ratio, as bench/dim3.py records), and one profiled 3-D step;
+22. ``forceModel=bh`` with ``dimensions=3``: the slot-pack kernels' 3-D
+    forms against their plain versions on examples/million_bodies.txt's
+    scene in 3-D (N = 1,048,576 in a 1e6 cube, levels 5, S = 80) and on a
+    crowded N = 262,144 state, with rows of 7 (B4, B5) and of 10 floats
+    (elastic): rows bitwise, B5's 10 moments at 2e-6;
+23. B3's 3-D form against its plain version: all four modes (rows of 7,
+    and of 10 in elastic mode) at eps 0 and 100 and ring 1 and 2 on a
+    crowded N = 65,536 state whose patch fills every slot of its cells,
+    with dead slots mid-cell, two calls bitwise equal; and on the 1M 3-D
+    scene's grid; float channels at 2e-5, flags and ids exact;
+24. 3-D bh through B3/B5 against the exact 3-D kernel B1 at N = 16,384:
+    far force within tests/test_3d.py:253-254's tolerances for (ring,
+    order) = (1, 1), (1, 2), (2, 2), and collision channels exact where
+    every overlap lies in the window (tests/test_3d.py:272-299);
+25. the 3-D bh main path: ``nbodyax_torch.cli`` on the 1M scene with
+    ``forceModel=bh dimensions=3`` and every bh knob auto for 20 steps: the
+    knobs it picked, ``bh_overflow`` 0, B3 and B5 once a step, the peak
+    device memory;
+26. ``bhFar=direct bhOrder=1`` with ``dimensions=3`` on the CLI at
+    N = 65,536 (B4 at L = 7 once a step), the same in elastic mode (B4 and
+    B3 at L = 10), and elastic mode with the FMM (B5 at L = 10);
+27. B3, B4 and B5 in 3-D timed against their plain versions at N = 1M
+    (B4 also against one gather), bounds from the run's cell occupancy
+    (23 flops a live 3-D pair; bytes with 10 moments), each kernel's own
+    device time; one 3-D bh step (CUDA-event span, host wall), its
+    profiler breakdown, device idle share and peak memory.
 
 The line before the last is a JSON object describing each kernel (the
 wrapper call's CUDA-event time ``ms``, the kernel's own device time by
@@ -94,6 +120,7 @@ from __future__ import annotations
 
 import contextlib
 import io
+import itertools
 import json
 import os
 import re
@@ -121,12 +148,13 @@ PEAK_BYTES_PER_S = 3.35e12
 B1_FLOPS_PER_PAIR = 18
 B2_FLOPS_PER_PAIR_SIDE = 29
 B3_FLOPS_PER_PAIR = 18
-# The 3-D forms by the same rule: B1 adds dz, dz*dz and its add into d2,
-# w*dz and its add into the z sum (18 + 5); B2 adds on each side uz, uz*uz
+# The 3-D forms by the same rule: B1 (and B3) adds dz, dz*dz and its add
+# into d2, w*dz and its add into the z sum (18 + 5); B2 adds on each side uz, uz*uz
 # and its add, the z product and add of g.u, and the z gradient component
 # (mj (tt uz - s gz), four flops) and its add (29 + 10).
 B1_FLOPS_PER_PAIR_3D = 23
 B2_FLOPS_PER_PAIR_SIDE_3D = 39
+B3_FLOPS_PER_PAIR_3D = 23
 # names of each kernel's own launches in a profiler trace
 B1_TAGS = ("pair_kernel<", "pair_combine")
 B2_TAGS = ("pair_bwd_kernel", "pair_bwd_combine")
@@ -471,8 +499,8 @@ def phase_main_path(steps=STEPS, integrator="euler", dims=2):
     return launches
 
 
-def time_ms(fn, reps=20):
-    for _ in range(2):
+def time_ms(fn, reps=20, warm=2):
+    for _ in range(warm):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -489,25 +517,29 @@ def device_ms(fn, tags, reps=20):
     each traced kernel whose name holds one of ``tags``, its mean duration
     a launch, summed over those kernels (each launches once a call: a pass
     and its combine, or B5's two). A mean a launch keeps the figure right
-    if CUPTI drops a record. Returns (ms, "name: us, ..." text)."""
+    if CUPTI drops a record; a trace without any of the kernels' records is
+    taken again, three times at most. Returns (ms, "name: us, ..." text)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     per = {}
-    for ev in prof.key_averages():
-        d = getattr(ev, "self_device_time_total",
-                    getattr(ev, "self_cuda_time_total", 0))
-        if (ev.device_type == DeviceType.CUDA and ev.count
-                and any(t in ev.key for t in tags)):
-            name = ev.key.replace("(anonymous namespace)::", "").replace(
-                "void ", "", 1).split("(")[0]
-            per[name] = per.get(name, 0.0) + d / ev.count
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for ev in prof.key_averages():
+            d = getattr(ev, "self_device_time_total",
+                        getattr(ev, "self_cuda_time_total", 0))
+            if (ev.device_type == DeviceType.CUDA and ev.count
+                    and any(t in ev.key for t in tags)):
+                name = ev.key.replace("(anonymous namespace)::", "").replace(
+                    "void ", "", 1).split("(")[0]
+                per[name] = per.get(name, 0.0) + d / ev.count
+        if per:
+            break
     check(per, f"the profiler traced no kernel named {tags}")
     ms = sum(per.values()) / 1e3
     return ms, ", ".join(f"{k} {v:.2f} us" for k, v in sorted(per.items()))
@@ -953,15 +985,15 @@ def million_scene(cfg):
     return arrays
 
 
-def crowded_state(n, seed, field, dead=True, crowd=True):
+def crowded_state(n, seed, field, dead=True, crowd=True, dims=2):
     """Uniform bodies over +-field, a quarter of them inside one small
     patch at the centre (unless not ``crowd``), body 7 dead."""
     rng = np.random.RandomState(seed)
-    pos = rng.uniform(-field, field, (n, 2)).astype(np.float32)
-    patch = rng.uniform(-field / 3000, field / 3000, (n // 4, 2))
+    pos = rng.uniform(-field, field, (n, dims)).astype(np.float32)
+    patch = rng.uniform(-field / 3000, field / 3000, (n // 4, dims))
     if crowd:
         pos[: n // 4] = patch
-    vel = rng.uniform(-3, 3, (n, 2)).astype(np.float32)
+    vel = rng.uniform(-3, 3, (n, dims)).astype(np.float32)
     mass = rng.uniform(1e4, 1e17, n).astype(np.float32)
     radius = rng.uniform(50, 200, n).astype(np.float32)
     if dead:
@@ -977,20 +1009,25 @@ def bh_structure(arrays, dev, levels, need_vel):
     return t, ext, _partner_structure(*t, ext, 1 << levels, need_vel)
 
 
-def phase_slotpack(dev, arrays_1m):
+def phase_slotpack(dev, arrays_1m, levels=8, S=40, dims=2):
     """B5 (and B4) against their plain versions: rows bitwise, moments at
     2e-6 of max(per-channel scale, 1), on the N = 1M scene and on a
-    crowded state. Returns the largest absolute moment error (B5) and row
-    error (B4) seen."""
+    crowded state; in 3-D with rows of 7 and, with velocities, of 10
+    floats, and 10 moments. Returns the largest absolute moment error (B5)
+    and row error (B4) seen."""
     from nbodyax_torch.physics.slotpack_kernel import (
         build_slot_grid_reference, finest_moments_reference, pack_slots)
-    levels, S = 8, 40
     worst = worst_rows = 0.0
-    for name, arrays in (("scene N=1M", arrays_1m),
-                         ("crowded N=262144",
-                          crowded_state(1 << 18, 4, 1e6))):
-        (pos, _, mass, _), ext, st = bh_structure(arrays, dev, levels, False)
-        n, ncells = pos.shape[0], 1 << (2 * levels)
+    tag = "" if dims == 2 else "3-D "
+    cases = [(f"{tag}{name}", arrays, need_vel)
+             for name, arrays in (("scene N=1M", arrays_1m),
+                                  ("crowded N=262144",
+                                   crowded_state(1 << 18, 4, 1e6, dims=dims)))
+             for need_vel in ((False,) if dims == 2 else (False, True))]
+    for name, arrays, need_vel in cases:
+        (pos, _, mass, _), ext, st = bh_structure(arrays, dev, levels,
+                                                  need_vel)
+        n, ncells, L = pos.shape[0], 1 << (dims * levels), st[4].shape[1]
         rows_k, mom_k = pack_slots(st[4], st[2], st[3], S,
                                    moments=(pos, mass, ext, levels))
         rows_b4 = pack_slots(st[4], st[2], st[3], S)
@@ -998,45 +1035,53 @@ def phase_slotpack(dev, arrays_1m):
         mom_p = finest_moments_reference(pos, mass, ext, levels)
         torch.cuda.synchronize()
         occ = int((st[3] - st[2]).max())
-        check(torch.equal(rows_k, rows_p), f"B5 rows differ ({name})")
-        check(torch.equal(rows_b4, rows_p), f"B4 rows differ ({name})")
+        check(torch.equal(rows_k, rows_p), f"B5 rows differ ({name} L={L})")
+        check(torch.equal(rows_b4, rows_p), f"B4 rows differ ({name} L={L})")
+        check(mom_k.shape == mom_p.shape == (ncells, 6 if dims == 2 else 10),
+              f"B5 moments have shape {tuple(mom_k.shape)} ({name})")
         scale = mom_p.abs().amax(0).clamp(min=1.0)
         err = ((mom_k - mom_p).abs().amax(0) / scale).max().item()
         worst = max(worst, float((mom_k - mom_p).abs().max()))
         worst_rows = max(worst_rows, float((rows_b4 - rows_p).abs().max()))
-        print(f"slot pack {name}: B4/B5 rows bitwise equal to the gather "
-              f"(max cell occupancy {occ}); B5 moments {err:.3e} of the "
-              f"per-channel scale (gate {MOM_GATE})")
-        check(err < MOM_GATE, f"B5 moments off by {err} ({name})")
+        print(f"slot pack {name} L={L}: B4/B5 rows bitwise equal to the "
+              f"gather (max cell occupancy {occ}); B5's {mom_k.shape[1]} "
+              f"moments {err:.3e} of the per-channel scale (gate "
+              f"{MOM_GATE})")
+        check(err < MOM_GATE, f"B5 moments off by {err} ({name} L={L})")
     return worst, worst_rows
 
 
-def near_compare(fslot, mode, eps2, g, ring, ci):
+def near_compare(fslot, mode, eps2, g, ring, ci, dim=2):
     """B3 against its plain version at every live i slot: float channels
-    relative to the channel's largest value, id and flag channels exact.
-    Returns (errors, passed, largest absolute error)."""
+    relative to the channel's largest value, id and flag channels exact,
+    and a second call bitwise equal to the first. Returns (errors, passed,
+    largest absolute error)."""
     from nbodyax_torch.physics.near_kernel import (slots_near,
                                                    slots_near_reference)
-    kw = dict(mode=mode, eps2=eps2, growth=0.1, g=g, ring=ring, ci=ci)
+    kw = dict(mode=mode, eps2=eps2, growth=0.1, g=g, ring=ring, ci=ci,
+              dim=dim)
     k = slots_near(fslot, **kw)
+    repeats = bool(torch.equal(k, slots_near(fslot, **kw)))
     p = slots_near_reference(fslot, **kw)
-    rest = 4 if mode == "elastic" else 2
+    rest = 2 * dim if mode == "elastic" else dim
     live = fslot[:, :ci, rest] > 0
     k, p = k[live], p[live]
-    floats = {"reference": [0, 1, 2, 3], "momentum": [0, 1],
-              "elastic": [0, 1, 2, 3], "none": [0, 1]}[mode]
-    exact = {"reference": [4], "momentum": [3, 4]}.get(mode, [])
-    err, ok = {}, True
+    force = list(range(dim))
+    floats = {"reference": force + [dim, dim + 1], "momentum": force,
+              "elastic": list(range(2 * dim)), "none": force}[mode]
+    exact = {"reference": [dim + 2],
+             "momentum": [dim + 1, dim + 2]}.get(mode, [])
+    err, ok = {"repeat_bitwise": repeats}, repeats
     for c in floats:
         e = float((k[:, c] - p[:, c]).abs().max()
                   / p[:, c].abs().max().clamp(min=1e-30))
         err[f"ch{c}"] = e
         ok &= e < NEAR_GATE
     if mode == "momentum":
-        fin = torch.isfinite(p[:, 2])
-        ok &= bool(torch.equal(fin, torch.isfinite(k[:, 2])))
-        e = float((k[fin, 2] - p[fin, 2]).abs().max()
-                  / p[fin, 2].abs().max().clamp(min=1e-30)) if fin.any() \
+        fin = torch.isfinite(p[:, dim])
+        ok &= bool(torch.equal(fin, torch.isfinite(k[:, dim])))
+        e = float((k[fin, dim] - p[fin, dim]).abs().max()
+                  / p[fin, dim].abs().max().clamp(min=1e-30)) if fin.any() \
             else 0.0
         err["best_mass"] = e
         ok &= e < NEAR_GATE
@@ -1044,8 +1089,8 @@ def near_compare(fslot, mode, eps2, g, ring, ci):
         same = bool(torch.equal(k[:, c], p[:, c]))
         err[f"ch{c}_exact"] = same
         ok &= same
-    fin = torch.isfinite(p[:, :2]).all(1)
-    return err, ok, float((k[fin, :2] - p[fin, :2]).abs().max())
+    fin = torch.isfinite(p[:, :dim]).all(1)
+    return err, ok, float((k[fin, :dim] - p[fin, :dim]).abs().max())
 
 
 def phase_near(dev, arrays_1m):
@@ -1177,16 +1222,19 @@ def config_text(cfg):
 
 
 def phase_bh_main_path(cfg):
-    """The CLI on the N = 1M bh configuration for 20 steps: the knobs it
-    picked, bh_overflow 0, a finite state, B3 and B5 once a step. Returns
-    (B3 launches, B5 launches)."""
+    """The CLI on the N = 1M bh configuration (2-D, or 3-D with
+    ``dimensions=3``) for 20 steps: the knobs it picked, bh_overflow 0, a
+    finite state, B3 and B5 once a step, the run's peak device memory.
+    Returns (B3 launches, B5 launches)."""
     from nbodyax_torch.physics.near_kernel import slots_near
     from nbodyax_torch.physics.slotpack_kernel import pack_slots
     with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.reset_peak_memory_stats()
         slots_near.launches = 0
         pack_slots.moment_launches = 0
         out, rc = run_cli([], config_text(cfg), tmp)
         b3, b5 = slots_near.launches, pack_slots.moment_launches
+        peak = torch.cuda.max_memory_allocated()
     check(rc == 0, f"bh cli exited {rc}")
     knobs = [l for l in out.splitlines() if l.startswith("bh auto-selected")]
     check(len(knobs) == 1, "no 'bh auto-selected' line")
@@ -1202,8 +1250,13 @@ def phase_bh_main_path(cfg):
     taken = [l for l in out.splitlines() if l.startswith("Time taken: ")]
     check(len(taken) == 1, "no 'Time taken:' line")
     last = logs[-1]
-    print(f"bh main path N={cfg.particle_count}: {knobs[0]}")
-    print(f"bh main path: {steps} steps, B3 {b3} and B5 {b5} launches, "
+    if cfg.dimensions == 3:
+        check(all("momentum_z" in rec for rec in logs),
+              "a 3-D bh log line without momentum_z")
+    print(f"bh main path {cfg.dimensions}-D N={cfg.particle_count}: "
+          f"{knobs[0]}; peak device memory {peak / 2 ** 30:.3f} GiB")
+    print(f"bh main path {cfg.dimensions}-D: {steps} steps, B3 {b3} and B5 "
+          f"{b5} launches, "
           f"bh_overflow {[r['bh_overflow'] for r in logs]}, "
           f"bh_giant_excess {last['bh_giant_excess']}, {last['alive']} "
           f"alive, {taken[0]}, {last['steps_per_sec']:.6g} steps/s "
@@ -1212,31 +1265,44 @@ def phase_bh_main_path(cfg):
     return b3, b5
 
 
-def phase_bh_direct():
-    """bhFar=direct bhOrder=1 on the CLI at N = 65,536 for 10 steps: the
-    slots engine packs with B4 (no moments wanted) once a step."""
+def phase_bh_direct(dims=2, mode="reference", far="direct", order=1):
+    """The CLI at N = 65,536 for 10 steps with ``bhNear=slots``. With
+    ``bhFar=direct bhOrder=1`` the slots engine packs with B4 (no moments
+    wanted) once a step, with the FMM with B5; B3 runs once a step either
+    way. In 3-D the rows are 7 wide, 10 in elastic mode. Returns the
+    launches of (B3, B4, B5)."""
     from nbodyax_torch.config import SimConfig
+    from nbodyax_torch.physics.near_kernel import slots_near
     from nbodyax_torch.physics.slotpack_kernel import pack_slots
     cfg = SimConfig(particle_count=65536, total_iterations=10,
-                    save_images=False, force_model="bh", bh_far="direct",
-                    bh_order=1, bh_near="slots")
+                    save_images=False, force_model="bh", bh_far=far,
+                    bh_order=order, bh_near="slots", dimensions=dims,
+                    collision_mode=mode)
     with tempfile.TemporaryDirectory() as tmp:
-        pack_slots.launches = 0
+        slots_near.launches = 0
+        pack_slots.launches = pack_slots.moment_launches = 0
         out, rc = run_cli([], config_text(cfg), tmp)
-        b4 = pack_slots.launches
-    check(rc == 0, f"bh direct cli exited {rc}")
+        got = (slots_near.launches, pack_slots.launches,
+               pack_slots.moment_launches)
+    check(rc == 0, f"bh {far} {dims}-D {mode} cli exited {rc}")
     logs = [json.loads(l) for l in out.splitlines() if l.startswith("{")]
-    check(logs and logs[-1]["bh_overflow"] == 0, f"direct logs {logs[-1:]}")
-    check(b4 == 10, f"B4 launched {b4} times in 10 steps")
-    print(f"bhFar=direct bhOrder=1 N=65536: 10 steps, B4 {b4} launches, "
+    check(logs and logs[-1]["bh_overflow"] == 0, f"{far} logs {logs[-1:]}")
+    want = (10, 10, 0) if (far, order) == ("direct", 1) else (10, 0, 10)
+    check(got == want, f"bh {far} order {order} {dims}-D {mode}: B3, B4, B5 "
+          f"launched {got} times in 10 steps, expected {want}")
+    print(f"bhFar={far} bhOrder={order} {dims}-D {mode} N=65536: 10 steps, "
+          f"B3 {got[0]}, B4 {got[1]}, B5 {got[2]} launches, "
           f"{logs[-1]['alive']} alive")
-    return b4
+    return got
 
 
-def phase_bh_timing(dev, arrays_1m, cfg):
-    """B3, B4 and B5 against their plain versions at N = 1M (CUDA events,
-    turns plain, kernel, kernel, plain), one bh step (device span and host
-    wall), and one step's torch.profiler device ops and idle share."""
+def phase_bh_timing(dev, arrays_1m, cfg, levels=8, S=40, ci=32):
+    """B3, B4 and B5 against their plain versions at N = 1M in the
+    dimensions of ``cfg`` (CUDA events, turns plain, kernel, kernel,
+    plain), one bh step (device span and host wall), and one step's
+    torch.profiler device ops, idle share and peak device memory. The
+    defaults are the 2-D scene's auto knobs; the 3-D scene's are levels 5,
+    S = 80, ci = 64."""
     from nbodyax_torch.driver import resolve_bh_config
     from nbodyax_torch.backends import build_accum_fn
     from nbodyax_torch.physics.near_kernel import (slots_near,
@@ -1246,12 +1312,14 @@ def phase_bh_timing(dev, arrays_1m, cfg):
     from nbodyax_torch.physics.step import PhysicsParams, make_step
     from nbodyax_torch.state import make_state
 
-    levels, S, ci = 8, 40, 32
+    dims = cfg.dimensions
+    tag = "1M scene" if dims == 2 else "3-D 1M scene"
     (pos, _, mass, _), ext, st = bh_structure(arrays_1m, dev, levels, False)
-    n, ncells = pos.shape[0], 1 << 16
+    g = 1 << levels
+    n, ncells = pos.shape[0], g ** dims
     fslot = pack_slots(st[4], st[2], st[3], S)
-    kw = dict(mode="reference", eps2=0.0, growth=0.1, g=1 << levels, ring=1,
-              ci=ci)
+    kw = dict(mode="reference", eps2=0.0, growth=0.1, g=g, ring=1, ci=ci,
+              dim=dims)
     fns = {
         "B3": (lambda: slots_near(fslot, **kw),
                lambda: slots_near_reference(fslot, **kw)),
@@ -1264,13 +1332,18 @@ def phase_bh_timing(dev, arrays_1m, cfg):
                                                   ncells, S),
                         finest_moments_reference(pos, mass, ext, levels))),
     }
+    # the plain 3-D near field walks 27 cells a window: one call a turn
+    plain_reps = {"B3": (5, 2) if dims == 2 else (1, 1)}
     times = {}
     for name, (kern, plain) in fns.items():
         t = {"kernel": [], "plain": []}
         for which in ("plain", "kernel", "kernel", "plain"):
-            fn = kern if which == "kernel" else plain
-            t[which].append(time_ms(fn, reps=5 if which == "plain" else 20))
-        print(f"{name} N=1M: kernel {t['kernel']} ms, plain {t['plain']} ms")
+            if which == "kernel":
+                t[which].append(time_ms(kern, reps=20))
+            else:
+                reps, warm = plain_reps.get(name, (5, 2))
+                t[which].append(time_ms(plain, reps=reps, warm=warm))
+        print(f"{name} {tag}: kernel {t['kernel']} ms, plain {t['plain']} ms")
         times[name] = {"ms": float(np.mean(t["kernel"])),
                        "plain_ms": float(np.mean(t["plain"])),
                        "library_ms": None}
@@ -1281,42 +1354,48 @@ def phase_bh_timing(dev, arrays_1m, cfg):
     lib = [time_ms(lambda: st[4][idx], reps=20) for _ in range(2)]
     times["B4"]["library_ms"] = float(np.mean(lib))
     # bounds from this run's occupancy: live i slots against the live
-    # slots of their 3 x 3 window (clipped at the grid's edge)
-    g = 1 << levels
-    occ = (st[3] - st[2]).to(torch.int64).view(g, g)
+    # slots of their 3^dims window (clipped at the grid's edge)
+    occ = (st[3] - st[2]).to(torch.int64).view((g,) * dims)
     live_i = occ.clamp(max=ci)
     live_s = occ.clamp(max=S)
-    pad = torch.nn.functional.pad(live_s, (1, 1, 1, 1))
-    window = sum(pad[1 + dy:1 + dy + g, 1 + dx:1 + dx + g]
-                 for dy in (-1, 0, 1) for dx in (-1, 0, 1))
+    pad = torch.nn.functional.pad(live_s, (1, 1) * dims)
+    window = sum(pad[tuple(slice(1 + o, 1 + o + g) for o in off)]
+                 for off in itertools.product((-1, 0, 1), repeat=dims))
     pairs = int((live_i * window).sum())
     L = st[4].shape[1]
+    n_mom = 6 if dims == 2 else 10
     rows_moved = int(live_s.sum()) * L * 4
     grid_bytes = ncells * S * L * 4 + 2 * ncells * st[2].element_size()
-    times["B3"]["bound"] = bound_ms(pairs * B3_FLOPS_PER_PAIR,
+    pair_flops = B3_FLOPS_PER_PAIR if dims == 2 else B3_FLOPS_PER_PAIR_3D
+    times["B3"]["bound"] = bound_ms(pairs * pair_flops,
                                     fslot.numel() * 4 + ncells * ci * 8 * 4)
     times["B4"]["bound"] = bound_ms(0, rows_moved + grid_bytes)
-    times["B5"]["bound"] = bound_ms(0, rows_moved + grid_bytes + n * 12
-                                    + ncells * 6 * 4)
+    times["B5"]["bound"] = bound_ms(0, rows_moved + grid_bytes
+                                    + n * (dims + 1) * 4
+                                    + ncells * n_mom * 4)
     for name in ("B3", "B4", "B5"):
         b, by = times[name]["bound"]
-        print(f"{name} N=1M: {times[name]['ms']:.4f} ms, bound {b:.4f} ms "
-              f"({by}; {pairs} live near pairs), "
+        print(f"{name} {tag}: {times[name]['ms']:.4f} ms, bound {b:.4f} ms "
+              f"({by}; {pairs} live near pairs at {pair_flops} flops), "
               f"{100 * b / times[name]['ms']:.1f}% of the bound; one "
               f"PyTorch call: {times[name]['library_ms']} ms")
         kern = fns[name][0]
         times[name]["device_ms"] = report_device(
-            f"{name} (1M scene)", n, kern,
+            f"{name} ({tag})", n, kern,
             B3_TAGS if name == "B3" else PACK_TAGS, times[name]["ms"],
             times[name]["bound"])
-    slotpack_tail(dev, levels, S)
+    if dims == 2:
+        slotpack_tail(dev, levels, S)
+    del fslot, idx, pslots
 
     state = make_state(*arrays_1m, device=dev)
     rcfg = resolve_bh_config(cfg, state)
     p = PhysicsParams.from_config(rcfg)
     step = make_step(p, accum_fn=build_accum_fn(rcfg.backend, p, dev, rcfg))
+    torch.cuda.reset_peak_memory_stats()
     step(state)
     torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
     dev_ms = time_ms(lambda: step(state), reps=5)
     walls = []
     for _ in range(5):
@@ -1325,12 +1404,13 @@ def phase_bh_timing(dev, arrays_1m, cfg):
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     walls.sort()
-    print(f"bh step N=1M ({rcfg.bh_near}, levels {rcfg.bh_levels}, K "
-          f"{rcfg.bh_neighbor_k}): {dev_ms:.4f} ms CUDA-event span, host "
+    print(f"bh step {dims}-D N=1M ({rcfg.bh_near}, levels {rcfg.bh_levels}, "
+          f"K {rcfg.bh_neighbor_k}): {dev_ms:.4f} ms CUDA-event span, host "
           f"wall a step median {walls[2]:.4f} ms (5 steps, "
-          f"{walls[0]:.4f}-{walls[-1]:.4f})")
+          f"{walls[0]:.4f}-{walls[-1]:.4f}), peak device memory of one step "
+          f"{peak / 2 ** 30:.3f} GiB")
 
-    profile_breakdown(lambda: step(state), 3, "bh step N=1M")
+    profile_breakdown(lambda: step(state), 3, f"bh step {dims}-D N=1M")
     return times
 
 
@@ -1514,6 +1594,127 @@ def phase_timing_3d(dev, scene2d, scene3d, cfg3):
     return out
 
 
+# ---------------------------------------------------------------------------
+# forceModel=bh with dimensions=3: the 3-D forms of B3, B4 and B5
+# ---------------------------------------------------------------------------
+
+BH3D_LEVELS, BH3D_S, BH3D_CI = 5, 80, 64    # the 1M 3-D scene's auto knobs
+
+
+def scene_arrays_of(cfg):
+    """The scene of ``cfg`` as numpy arrays (pos, vel, mass, radius); the
+    port's 3-D uniform scene is a torch.Generator draw from the seed."""
+    from nbodyax_torch.scenes import init_scene
+    t0 = time.perf_counter()
+    st = init_scene(cfg, device="cpu")
+    print(f"scene {cfg.dimensions}-D N={cfg.particle_count} seed {cfg.seed}: "
+          f"{time.perf_counter() - t0:.1f} s")
+    return [x.numpy().copy() for x in st[:4]]
+
+
+def phase_near_3d(dev, arrays_1m):
+    """B3's 3-D form against its plain version: all four modes (rows of 7,
+    of 10 in elastic mode) at eps 0 and 100 and ring 1 and 2 on a crowded
+    N = 65,536 state at levels 3 (a patch that fills every slot of its
+    cells, grid faces, a cell far past the slot budget) with every third
+    cell's slot 1 made a dead body after the pack, so that dead slots sit
+    between live ones; two calls bitwise equal; then the 1M 3-D scene's
+    grid in the main path's mode. Returns the largest absolute force error
+    on the 1M scene."""
+    from nbodyax_torch.physics.slotpack_kernel import pack_slots
+    levels, S, ci = 3, BH3D_S, BH3D_CI
+    g = 1 << levels
+    for mode in ("reference", "momentum", "elastic", "none"):
+        arrays = crowded_state(65536, 12, 1e5, dims=3)
+        _, _, st = bh_structure(arrays, dev, levels, mode == "elastic")
+        fslot = pack_slots(st[4], st[2], st[3], S)
+        rest = 6 if mode == "elastic" else 3
+        fslot[::3, 1, rest] = 0.0            # dead bodies mid-cell
+        full = int((fslot[:, :, rest] > 0).all(1).sum())
+        check(full > 0, "3-D crowded state: no cell has every slot live")
+        for ring in (1, 2):
+            for eps in (0.0, 100.0):
+                err, ok, _ = near_compare(fslot, mode, eps * eps, g, ring,
+                                          ci, dim=3)
+                print(f"B3 3-D vs plain N=65536 crowded L={fslot.shape[2]} "
+                      f"{mode} ring={ring} eps={eps} ({full} cells with "
+                      f"every slot live): {json.dumps(err)}")
+                check(ok, f"B3 3-D disagrees with its plain version: {mode} "
+                          f"ring={ring} eps={eps}: {err}")
+    _, _, st = bh_structure(arrays_1m, dev, BH3D_LEVELS, False)
+    fslot = pack_slots(st[4], st[2], st[3], S)
+    err, ok, max_abs = near_compare(fslot, "reference", 0.0,
+                                    1 << BH3D_LEVELS, 1, ci, dim=3)
+    print(f"B3 3-D vs plain N=1M 3-D scene (levels {BH3D_LEVELS}, S {S}, ci "
+          f"{ci}) reference eps=0: {json.dumps(err)}")
+    check(ok, f"B3 3-D disagrees with its plain version on the 1M scene: "
+              f"{err}")
+    return max_abs
+
+
+def phase_bh_vs_exact_3d(dev):
+    """3-D bh through B3/B5 against the exact 3-D all-pairs kernel B1 at
+    N = 16,384: the far force within tests/test_3d.py:253-254's tolerances
+    for (ring, order), and collision channels exact where every overlap
+    lies inside the near window (tests/test_3d.py:272-299's construction:
+    cells of 500 against radii up to 60)."""
+    from nbodyax_torch.physics import barneshut as bh
+    from nbodyax_torch.physics.kernels import pair_accumulators_kernel
+    from nbodyax_torch.physics.near_kernel import slots_near
+    from nbodyax_torch.physics.slotpack_kernel import pack_slots
+
+    n = 16384
+    rng = np.random.RandomState(11)
+    pos = rng.uniform(-5000, 5000, (n, 3)).astype(np.float32)
+    vel = np.zeros((n, 3), np.float32)
+    mass = rng.uniform(1, 100, n).astype(np.float32)
+    mass[5] = 0.0
+    radius = rng.uniform(1, 8, n).astype(np.float32)
+    t = [torch.from_numpy(x).to(dev) for x in (pos, vel, mass, radius)]
+    ex = pair_accumulators_kernel(*t, eps=50.0, mode="none")
+    for ring, order, tol in ((1, 1, 0.08), (1, 2, 0.02), (2, 2, 0.01)):
+        before = (slots_near.launches, pack_slots.moment_launches)
+        got = bh.bh_accumulators(*t, eps=50.0, mode="none", ring=ring,
+                                 levels=3, neighbor_k=0, order=order,
+                                 near="slots")
+        check((slots_near.launches, pack_slots.moment_launches)
+              == (before[0] + 1, before[1] + 1),
+              "3-D bh did not launch B3 and B5 once")
+        err = rel_force_err(got.force, ex.force)
+        print(f"3-D bh (B3 + B5, fmm, ring {ring}, order {order}) vs exact "
+              f"(B1 3-D) N={n}: rel_force_err {err:.4e} (gate {tol})")
+        check(err < tol, f"3-D bh far field off at ring {ring} order "
+                         f"{order}: rel_force_err {err}")
+
+    rng = np.random.RandomState(13)
+    pos = rng.uniform(-2000, 2000, (n, 3)).astype(np.float32)
+    vel = rng.uniform(-3, 3, (n, 3)).astype(np.float32)
+    radius = rng.uniform(20, 60, n).astype(np.float32)
+    t = [torch.from_numpy(x).to(dev) for x in (pos, vel, mass, radius)]
+    lv, near, k, comp = bh.pick_levels(t[0], t[2], levels=3, near="slots")
+    for mode in ("reference", "momentum", "elastic"):
+        got = bh.bh_accumulators(*t, eps=10.0, mode=mode, levels=lv,
+                                 neighbor_k=k, comp_cap=comp, near=near)
+        ex = pair_accumulators_kernel(*t, eps=10.0, mode=mode)
+        ok = True
+        if mode == "reference":
+            ok &= bool(torch.equal(got.died, ex.died))
+            ok &= bool(torch.allclose(got.gained_mass, ex.gained_mass,
+                                      rtol=1e-5, atol=0))
+            detail = f"{int(ex.died.sum())} deaths"
+        elif mode == "momentum":
+            ok &= bool(torch.equal(got.parent, ex.parent))
+            detail = f"{int((ex.best_mass > -np.inf).sum())} candidates"
+        else:
+            e = float((got.dv - ex.dv).abs().max()
+                      / ex.dv.abs().max().clamp(min=1e-30))
+            ok &= e < 2e-5
+            detail = f"dv {e:.3e} of the largest"
+        print(f"3-D bh vs exact collision channels N={n} {mode} (levels "
+              f"{lv}, K {k}): {'exact' if ok else 'DIFFER'}, {detail}")
+        check(ok, f"3-D bh collision channels differ from exact: {mode}")
+
+
 def kernel_name(mangled):
     """``name<template args>`` of a kernel in an anonymous namespace, from
     its mangled name (the mangled name itself otherwise)."""
@@ -1601,7 +1802,7 @@ def main() -> int:
     b3_max_abs_err = phase_near(dev, arrays_1m)
     phase_bh_vs_exact(dev)
     b3_launches, b5_launches = phase_bh_main_path(bh_cfg)
-    b4_launches = phase_bh_direct()
+    _, b4_launches, _ = phase_bh_direct()
     bh_times = phase_bh_timing(dev, arrays_1m, bh_cfg)
 
     cfg3, scene3d = default_scene_3d()
@@ -1615,6 +1816,19 @@ def main() -> int:
     bwd_launches_3d = phase_grad_path(init_scene(cfg3, device=dev),
                                       runs=(("euler", 4, 1),))
     times_3d = phase_timing_3d(dev, scene, scene3d, cfg3)
+
+    bh3_cfg = million_config(dimensions=3)
+    arrays3_1m = scene_arrays_of(bh3_cfg)
+    b5_3d_err, b4_3d_err = phase_slotpack(dev, arrays3_1m, BH3D_LEVELS,
+                                          BH3D_S, dims=3)
+    b3_3d_err = phase_near_3d(dev, arrays3_1m)
+    phase_bh_vs_exact_3d(dev)
+    b3_3d_launches, b5_3d_launches = phase_bh_main_path(bh3_cfg)
+    _, b4_3d_launches, _ = phase_bh_direct(dims=3)
+    phase_bh_direct(dims=3, mode="elastic")
+    phase_bh_direct(dims=3, mode="elastic", far="fmm", order=2)
+    bh3_times = phase_bh_timing(dev, arrays3_1m, bh3_cfg, BH3D_LEVELS,
+                                BH3D_S, BH3D_CI)
     loaded = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jaxlib", "nbodyax")]
     check(not loaded, f"the port loaded JAX or nbodyax: {loaded[:5]}")
@@ -1640,7 +1854,16 @@ def main() -> int:
          launches_3d, b1_3d_err, times_3d["B1"]),
         ("pair_bwd_kernel_3d", "pair_bwd_kernel.cu",
          "nbodyax/physics/kernels_bwd.py:79", bwd_launches_3d, b2_3d_err,
-         times_3d["B2"])]
+         times_3d["B2"]),
+        ("near_kernel_3d", "near_kernel.cu",
+         "nbodyax/physics/near_pallas.py:96", b3_3d_launches, b3_3d_err,
+         bh3_times["B3"]),
+        ("slot_pack_kernel_3d", "slotpack_kernel.cu",
+         "nbodyax/physics/slotpack_pallas.py:99", b4_3d_launches,
+         b4_3d_err, bh3_times["B4"]),
+        ("slot_pack_moments_kernel_3d", "slotpack_kernel.cu",
+         "nbodyax/physics/slotpack_pallas.py:123", b5_3d_launches,
+         b5_3d_err, bh3_times["B5"])]
     print(smi)
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": f"nbodyax_torch/csrc/{src}",

@@ -11,26 +11,34 @@
 // [starts[c], ends[c]); the ranges follow each other in cell order. The
 // slot grid rows[ncells, S, L] is each cell's first min(count, S) rows
 // followed by zero rows: exactly the gather of nbodyax's _build_slot_grid,
-// bit for bit (a copy and zero fill, no arithmetic). B5 also reduces each
-// cell's WHOLE range to the six order-2 moments of _finest_moments_scatter
-// about the cell centre mins + (c + 0.5) * csz: m, m*rx, m*ry, m*rx*rx,
-// m*rx*ry, m*ry*ry, with r = pos - centre. The centre, r and the products
-// are computed with the same f32 operations in the same order as the plain
-// version (__fmul_rn / __fadd_rn, never contracted into FMAs); only the
-// order of the sums differs.
+// bit for bit (a copy and zero fill, no arithmetic), for any row width L
+// the near field uses: DIM + 4, or 2 DIM + 4 in elastic mode, so 6 and 8 in
+// 2-D and 7 and 10 in 3-D. (The TPU kernel hands L = 10 to the gather,
+// because it exceeds its 8-sublane tile; this card has no such tile.) B5
+// also reduces each cell's WHOLE range to the order-2 moments of
+// _finest_moments_scatter about the cell centre mins + (c + 0.5) * csz of
+// a grid of side g in DIM = 2 or 3 dimensions (cell c has coordinate
+// (c / g^d) % g on axis d): m, m*r_a, then m*r_a*r_b for a <= b in
+// _moment_pairs' order, with r = pos - centre: 6 moments in 2-D (m, m*rx,
+// m*ry, m*rx*rx, m*rx*ry, m*ry*ry), 10 in 3-D (m, m*rx, m*ry, m*rz, xx, xy,
+// xz, yy, yz, zz). The centre, r and the products are computed with the
+// same f32 operations in the same order as the plain version (__fmul_rn /
+// __fadd_rn, never contracted into FMAs); only the order of the sums
+// differs.
 //
 // What bounds it: device-memory bandwidth. The slot grid is ncells*S*L
 // floats written (63 MB at N = 1M, S = 40, L = 6), the occupied rows of
 // the pack are read once, and the moments read pos and mass again; about
-// 0.031 ms at 3.35 TB/s for B5 at N = 1M.
+// 0.031 ms at 3.35 TB/s for B5 at N = 1M in 2-D.
 //
 // Design.
 //
 // - The copy (B4 and B5): one warp a cell, four cells a block. The warp
 //   writes the cell's S*L floats as one stream of 16-byte stores where S*L
-//   is a multiple of 4 (8-byte stores where it is even, 4-byte ones
-//   otherwise), each made of 8-byte loads from sf (L is even), and the pad
-//   past the count as zeros with the same stores.
+//   is a multiple of 4 and L is even (8-byte stores where only L is even,
+//   each made of 8-byte loads from sf; 4-byte loads and stores for the odd
+//   L = 7 of 3-D, whose rows are only 4-byte aligned), and the pad past
+//   the count as zeros with the same stores.
 // - The crowded-cell tail. One warp reducing a whole cell's range is a
 //   serial loop as long as the cell: a cell holding a quarter of a
 //   crowded N = 262,144 state (28,000 bodies) took 0.38 ms while the rest
@@ -50,17 +58,20 @@
 //   and no cell is more than kChunk bodies of one warp's work, plus a fold
 //   of count / kChunk partials.
 //
-// mins and csz arrive as a device array geom = {mins_x, mins_y, csz_x,
-// csz_y}, so the caller never reads the extent back to the host. The
-// partials are f32[nchunks, 2, 6], nchunks = ceil(n / kChunk), which the
-// wrapper allocates (slotpack_kernel.moment_plan).
+// mins and csz arrive as a device array geom = {mins[DIM], csz[DIM]}, so
+// the caller never reads the extent back to the host. The partials are
+// f32[nchunks, 2, 6 or 10], nchunks = ceil(n / kChunk), which the wrapper
+// allocates (slotpack_kernel.moment_plan).
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kWarps = 4;
-constexpr int kNumMoments = 6;
+// order-2 moments of a cell in DIM dimensions: 6 in 2-D, 10 in 3-D
+__host__ __device__ constexpr int num_moments(int dim) {
+  return 1 + dim + dim * (dim + 1) / 2;
+}
 constexpr int kChunk = 256;     // must equal slotpack_kernel.MOMENT_CHUNK
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -75,40 +86,69 @@ __device__ __forceinline__ float2 load2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
 }
 
-// The centre of cell c of a 2-D grid of side g, as the plain version
-// rounds it: mins + (c + 0.5) * csz.
+// The centre of cell c of a DIM-dimensional grid of side g, as the plain
+// version rounds it: mins + (c + 0.5) * csz on each axis, axis d at stride
+// g^d of the flat cell id.
+template <int DIM>
 __device__ __forceinline__ void centre(int c, int g, const float* geom,
-                                       float& ctrx, float& ctry) {
-  ctrx = __fadd_rn(geom[0],
-                   __fmul_rn(__fadd_rn(static_cast<float>(c % g), 0.5f),
-                             geom[2]));
-  ctry = __fadd_rn(geom[1],
-                   __fmul_rn(__fadd_rn(static_cast<float>(c / g), 0.5f),
-                             geom[3]));
+                                       float (&ctr)[DIM]) {
+  if constexpr (DIM == 3) {
+    ctr[0] = __fadd_rn(geom[0],
+                       __fmul_rn(__fadd_rn(static_cast<float>(c % g), 0.5f),
+                                 geom[3]));
+    ctr[1] = __fadd_rn(
+        geom[1], __fmul_rn(__fadd_rn(static_cast<float>((c / g) % g), 0.5f),
+                           geom[4]));
+    ctr[2] = __fadd_rn(
+        geom[2], __fmul_rn(__fadd_rn(static_cast<float>(c / (g * g)), 0.5f),
+                           geom[5]));
+  } else {
+    ctr[0] = __fadd_rn(geom[0],
+                       __fmul_rn(__fadd_rn(static_cast<float>(c % g), 0.5f),
+                                 geom[2]));
+    ctr[1] = __fadd_rn(geom[1],
+                       __fmul_rn(__fadd_rn(static_cast<float>(c / g), 0.5f),
+                                 geom[3]));
+  }
 }
 
-// The moments of the bodies [b0, b1) about (ctrx, ctry), summed by the
-// warp's lanes in a fixed order; lane 0 holds the result.
+// The moments of the bodies [b0, b1) about ctr, summed by the warp's lanes
+// in a fixed order; lane 0 holds the result.
+template <int DIM>
 __device__ __forceinline__ void warp_moments(const float* __restrict__ sf,
                                              int L, long long b0,
-                                             long long b1, float ctrx,
-                                             float ctry, int lane,
-                                             float (&s)[kNumMoments]) {
+                                             long long b1,
+                                             const float (&ctr)[DIM],
+                                             int lane,
+                                             float (&s)[num_moments(DIM)]) {
+  constexpr int kNumMoments = num_moments(DIM);
 #pragma unroll
   for (int k = 0; k < kNumMoments; ++k) s[k] = 0.f;
   for (long long b = b0 + lane; b < b1; b += 32) {
     const float* f = sf + b * L;
     const float m = f[L - 4];
-    const float rx = __fsub_rn(f[0], ctrx);
-    const float ry = __fsub_rn(f[1], ctry);
+    const float rx = __fsub_rn(f[0], ctr[0]);
+    const float ry = __fsub_rn(f[1], ctr[1]);
     const float mrx = __fmul_rn(m, rx);
     const float mry = __fmul_rn(m, ry);
     s[0] = __fadd_rn(s[0], m);
     s[1] = __fadd_rn(s[1], mrx);
     s[2] = __fadd_rn(s[2], mry);
-    s[3] = __fadd_rn(s[3], __fmul_rn(mrx, rx));
-    s[4] = __fadd_rn(s[4], __fmul_rn(mrx, ry));
-    s[5] = __fadd_rn(s[5], __fmul_rn(mry, ry));
+    if constexpr (DIM == 3) {
+      const float rz = __fsub_rn(f[2], ctr[2]);
+      const float mrz = __fmul_rn(m, rz);
+      s[3] = __fadd_rn(s[3], mrz);
+      s[4] = __fadd_rn(s[4], __fmul_rn(mrx, rx));
+      s[5] = __fadd_rn(s[5], __fmul_rn(mrx, ry));
+      s[6] = __fadd_rn(s[6], __fmul_rn(mrx, rz));
+      s[7] = __fadd_rn(s[7], __fmul_rn(mry, ry));
+      s[8] = __fadd_rn(s[8], __fmul_rn(mry, rz));
+      s[9] = __fadd_rn(s[9], __fmul_rn(mrz, rz));
+    } else {
+      s[3] = __fadd_rn(s[3], __fmul_rn(mrx, rx));
+      s[4] = __fadd_rn(s[4], __fmul_rn(mrx, ry));
+      s[5] = __fadd_rn(s[5], __fmul_rn(mry, ry));
+    }
   }
 #pragma unroll
   for (int k = 0; k < kNumMoments; ++k) {
@@ -152,12 +192,14 @@ __device__ int cells_of(const long long* __restrict__ ends, int ncells,
 
 // B5, first pass: a warp a chunk of kChunk sorted bodies; the partial
 // moments of the chunk's cells of more than kChunk bodies.
+template <int DIM>
 __global__ void __launch_bounds__(kWarps * 32)
 slot_pack_moments_chunk(const float* __restrict__ sf, int L,
                         const long long* __restrict__ starts,
                         const long long* __restrict__ ends, int ncells,
                         int nchunks, int g, const float* __restrict__ geom,
                         float* __restrict__ part) {
+  constexpr int kNumMoments = num_moments(DIM);
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int chunk = blockIdx.x * kWarps + warp;
@@ -174,9 +216,9 @@ slot_pack_moments_chunk(const float* __restrict__ sf, int L,
     const long long st = starts[cc];
     const long long en = ends[cc];
     if (en - st <= kChunk) continue;               // its copy warp reduces it
-    float ctrx, ctry, s[kNumMoments];
-    centre(cc, g, geom, ctrx, ctry);
-    warp_moments(sf, L, max(st, b0), min(en, b1), ctrx, ctry, lane, s);
+    float ctr[DIM], s[kNumMoments];
+    centre<DIM>(cc, g, geom, ctr);
+    warp_moments<DIM>(sf, L, max(st, b0), min(en, b1), ctr, lane, s);
     if (lane == 0) {
       float* o = part + (static_cast<long long>(chunk) * 2 + (st < b0 ? 0 : 1))
                             * kNumMoments;
@@ -187,9 +229,9 @@ slot_pack_moments_chunk(const float* __restrict__ sf, int L,
 }
 
 // The copy, a warp a cell (B4, and B5's second pass): rows, and with
-// kMoments the cell's moments, reduced here or folded from the chunk
-// pass's partials.
-template <bool kMoments, int kVec>
+// kMoments the cell's moments in DIM dimensions, reduced here or folded
+// from the chunk pass's partials (DIM is unused without kMoments).
+template <bool kMoments, int kVec, int DIM>
 __global__ void __launch_bounds__(kWarps * 32)
 slot_pack_kernel(const float* __restrict__ sf, int L,
                  const long long* __restrict__ starts,
@@ -225,6 +267,7 @@ slot_pack_kernel(const float* __restrict__ sf, int L,
   }
 
   if constexpr (kMoments) {
+    constexpr int kNumMoments = num_moments(DIM);
     float s[kNumMoments];
     if (count > kChunk) {
       // fold the partials in a fixed order: lane l takes chunks js + l,
@@ -250,9 +293,9 @@ slot_pack_kernel(const float* __restrict__ sf, int L,
         }
       }
     } else {
-      float ctrx, ctry;
-      centre(cell, g, geom, ctrx, ctry);
-      warp_moments(sf, L, st, en, ctrx, ctry, lane, s);
+      float ctr[DIM];
+      centre<DIM>(cell, g, geom, ctr);
+      warp_moments<DIM>(sf, L, st, en, ctr, lane, s);
     }
     if (lane == 0) {
       float* o = mom + static_cast<long long>(cell) * kNumMoments;
@@ -266,57 +309,76 @@ inline int blocks_for(long long items) {
   return static_cast<int>((items + kWarps - 1) / kWarps);
 }
 
-template <bool kMoments>
+template <bool kMoments, int DIM>
 void launch_pack(const float* sf, int L, const long long* starts,
                  const long long* ends, int ncells, int S, int g,
                  const float* geom, const float* part, float* rows,
                  float* mom, cudaStream_t s) {
   const dim3 grid(blocks_for(ncells)), block(kWarps * 32);
   if (L % 2 != 0) {
-    slot_pack_kernel<kMoments, 1><<<grid, block, 0, s>>>(
+    slot_pack_kernel<kMoments, 1, DIM><<<grid, block, 0, s>>>(
         sf, L, starts, ends, ncells, S, g, geom, part, rows, mom);
   } else if ((S * L) % 4 != 0) {
-    slot_pack_kernel<kMoments, 2><<<grid, block, 0, s>>>(
+    slot_pack_kernel<kMoments, 2, DIM><<<grid, block, 0, s>>>(
         sf, L, starts, ends, ncells, S, g, geom, part, rows, mom);
   } else {
-    slot_pack_kernel<kMoments, 4><<<grid, block, 0, s>>>(
+    slot_pack_kernel<kMoments, 4, DIM><<<grid, block, 0, s>>>(
         sf, L, starts, ends, ncells, S, g, geom, part, rows, mom);
   }
+}
+
+template <int DIM>
+void launch_moments(const float* sf, int L, const long long* starts,
+                    const long long* ends, int ncells, int S, int g,
+                    const float* geom, int nchunks, float* part, float* rows,
+                    float* mom, cudaStream_t s) {
+  if (nchunks > 0) {
+    slot_pack_moments_chunk<DIM><<<blocks_for(nchunks), kWarps * 32, 0, s>>>(
+        sf, L, starts, ends, ncells, nchunks, g, geom, part);
+  }
+  launch_pack<true, DIM>(sf, L, starts, ends, ncells, S, g, geom, part, rows,
+                         mom, s);
 }
 
 }  // namespace
 
 // B4: rows only. Plain C entry point for ctypes; returns cudaGetLastError().
-// sf must be 8-byte aligned and rows 16-byte aligned (the wrapper checks).
+// sf must be 8-byte aligned where L is even and rows 16-byte aligned (the
+// wrapper checks).
 extern "C" int nbodyax_slot_pack(const float* sf, int L,
                                  const long long* starts,
                                  const long long* ends, int ncells, int S,
                                  float* rows, void* stream) {
   if (ncells > 0) {
-    launch_pack<false>(sf, L, starts, ends, ncells, S, 0, nullptr, nullptr,
-                       rows, nullptr, static_cast<cudaStream_t>(stream));
+    launch_pack<false, 2>(sf, L, starts, ends, ncells, S, 0, nullptr,
+                          nullptr, rows, nullptr,
+                          static_cast<cudaStream_t>(stream));
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// B5: rows plus the [ncells, 6] order-2 moments of a 2-D grid of side g;
-// part is the f32[nchunks, 2, 6] scratch of the chunk pass, nchunks =
-// ceil(n / 256) for the n bodies of sf. Two launches.
+// B5: rows plus the [ncells, 6 or 10] order-2 moments of a grid of side g
+// in dim = 2 or 3 dimensions (ncells = g^dim); geom is {mins[dim],
+// csz[dim]}, part the f32[nchunks, 2, 6 or 10] scratch of the chunk pass,
+// nchunks = ceil(n / 256) for the n bodies of sf. Two launches. Any other
+// dim returns cudaErrorInvalidValue.
 extern "C" int nbodyax_slot_pack_moments(const float* sf, int L,
                                          const long long* starts,
                                          const long long* ends, int ncells,
-                                         int S, int g, const float* geom,
-                                         int nchunks, float* part,
-                                         float* rows, float* mom,
-                                         void* stream) {
+                                         int S, int g, int dim,
+                                         const float* geom, int nchunks,
+                                         float* part, float* rows,
+                                         float* mom, void* stream) {
+  if (dim != 2 && dim != 3) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (ncells > 0) {
-    if (nchunks > 0) {
-      slot_pack_moments_chunk<<<blocks_for(nchunks), kWarps * 32, 0, s>>>(
-          sf, L, starts, ends, ncells, nchunks, g, geom, part);
+    if (dim == 3) {
+      launch_moments<3>(sf, L, starts, ends, ncells, S, g, geom, nchunks,
+                        part, rows, mom, s);
+    } else {
+      launch_moments<2>(sf, L, starts, ends, ncells, S, g, geom, nchunks,
+                        part, rows, mom, s);
     }
-    launch_pack<true>(sf, L, starts, ends, ncells, S, g, geom, part, rows,
-                      mom, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

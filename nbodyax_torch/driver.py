@@ -60,8 +60,6 @@ def _check_supported(cfg: SimConfig) -> None:
         (cfg.compact_every > 0, "compactEvery > 0", "A8"),
         (cfg.energy_every > 0, "energyEvery > 0", "A8"),
         (cfg.shards > 1, "shards > 1", "A11"),
-        (cfg.force_model == "bh" and cfg.dimensions == 3,
-         "forceModel=bh with dimensions=3", "A10"),
     ]
     for unsupported, what, item in todo:
         if unsupported:

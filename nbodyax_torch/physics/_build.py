@@ -64,11 +64,11 @@ def _bind(fwd: ctypes.CDLL, bwd: ctypes.CDLL, near: ctypes.CDLL,
              [p, i, p, i, i, i, p, i, i, f, f, i, i, p, p, p, p, p]),
             (bwd, "nbodyax_pair_backward_launch_shape", [i, i, ip, ip]),
             (near, "nbodyax_slots_near",
-             [p, i, i, i, i, i, i, i, f, f, p, p]),
-            (near, "nbodyax_near_shared_bytes", [i, i]),
+             [p, i, i, i, i, i, i, i, i, f, f, p, p]),
+            (near, "nbodyax_near_shared_bytes", [i, i, i]),
             (pack, "nbodyax_slot_pack", [p, i, p, p, i, i, p, p]),
             (pack, "nbodyax_slot_pack_moments",
-             [p, i, p, p, i, i, i, p, i, p, p, p, p])):
+             [p, i, p, p, i, i, i, i, p, i, p, p, p, p])):
         fn = getattr(lib, name)
         fn.argtypes = args
         fn.restype = ctypes.c_int

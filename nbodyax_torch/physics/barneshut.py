@@ -1,5 +1,6 @@
 """Hierarchical gravity, ``forceModel=bh``: FMM far field plus the exact
-grid-neighbour near field, single device, 2-D.
+grid-neighbour near field, single device, in 2-D (a quadtree of cells) and
+3-D (an octree, at most 7 levels).
 
 Counterpart of ``nbodyax/physics/barneshut.py``; see its module docstring
 for the model and its documented approximations. The pieces:
@@ -305,8 +306,8 @@ def _near_field_cells(pos, vel, mass, radius, ext, levels: int, ring: int,
     if use_slots:
         fslot = _fslot if _fslot is not None else build_slot_grid_reference(
             sf, starts, ends, n, ncells, S)
-        raw = (slots_near(fslot, **kw) if kernel
-               else slots_near_reference(fslot, dim=dim, **kw))
+        raw = (slots_near if kernel else slots_near_reference)(
+            fslot, dim=dim, **kw)
         packed = raw.reshape(nslots, -1)
     else:
         packed = _rows_engine(structure, ncells, g, ring, k, ci_cap, chunk,

@@ -8,21 +8,27 @@ Counterpart of the far-field half of ``nbodyax/physics/barneshut.py``:
 (``_far_force``, ``_far_force_cells``). None of this ran in a Pallas
 kernel; it is plain torch on any device.
 
-Precision: the M2L convolution runs in full fp32 (nbodyax asks XLA for
-``Precision.HIGHEST``). cuDNN's float32 convolutions default to TF32, which
-keeps about three decimal digits and gave a 7.2% far-force error on the
-TPU, so ``_m2l_level_conv`` turns TF32 off around its call. The moment
-grids and expansions are sums and products of float32 tensors, never
-matrix products.
+Precision: the M2L convolution (``conv2d``, or ``conv3d`` for an octree)
+runs in full fp32 (nbodyax asks XLA for ``Precision.HIGHEST``). cuDNN's
+float32 convolutions default to TF32, which keeps about three decimal
+digits and gave a 7.2% far-force error on the TPU, so ``_m2l_level_conv``
+turns TF32 off around its call (``_no_tf32``: cuDNN's switch and the
+matrix-product one, which a convolution lowered to a product would read).
+The moment grids and expansions are sums and products of float32 tensors,
+never matrix products.
 
 Cell-chunked passes of nbodyax (``lax.map`` over cell blocks) become one
 pass over all cells, looping over the static window offsets instead: each
 iteration is a handful of whole-grid elementwise ops, so a step launches
-tens of kernels a level, not thousands.
+tens of kernels a level, not thousands. The annulus batches every shell
+offset at once and is cut into cell chunks only where its
+[cells, slots, offsets] temporaries would pass ``_ANNULUS_ELEMS``
+elements: the 98 offsets of a 3-D shell, against 16 in 2-D.
 """
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import math
 
@@ -42,6 +48,22 @@ __all__ = ["_level_grids", "_far_window_force", "_fmm_offsets",
 
 
 _CONSTS = {}
+# most elements of one [cells, slots, shell offsets] temporary of the
+# annulus (128 MiB of float32); the 2-D million-body step fits in one pass
+_ANNULUS_ELEMS = 1 << 25
+
+
+@contextlib.contextmanager
+def _no_tf32():
+    """Full-fp32 convolutions inside: cuDNN's TF32 off, and the
+    matrix-product TF32 switch off too for the time of the call."""
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
 
 
 def _const(key, device, make):
@@ -283,10 +305,11 @@ def _m2l_level_conv(packed, s: int, ext, eps2, ring: int, dim: int,
     is a (2 ring + 1)^dim stencil with 2^dim n_src input and 2^dim n_loc
     output channels. ``packed`` is the level's [s^dim, n_src] source grid;
     returns [s^dim, n_loc]. Runs in true fp32 (TF32 off). ``W`` may pass
-    the level's precomputed ``_m2l_weights``. 2-D only."""
-    if dim != 2:
-        raise NotImplementedError("the port's M2L convolution is 2-D only "
-                                  "(3-D bh is ROADMAP item A10)")
+    the level's precomputed ``_m2l_weights``. 2-D (``conv2d``, 4 parity
+    classes) or 3-D (``conv3d``, 8)."""
+    if dim not in (2, 3):
+        raise ValueError(f"the M2L convolution runs in 2 or 3 dimensions, "
+                         f"got dim={dim}")
     nch = packed.shape[1]
     sp = s // 2
     ks = 2 * ring + 1
@@ -300,16 +323,26 @@ def _m2l_level_conv(packed, s: int, ext, eps2, ring: int, dim: int,
     kflat = torch.zeros((ks ** dim, 1 << dim, 1 << dim, nch, n_loc),
                         dtype=torch.float32, device=packed.device)
     kflat[kf, rf, pf] = W[oi]
-    # [ky, kx, r (in), p (out), nch, n_loc] -> conv2d weight [out, in, ky, kx]
-    ker = kflat.reshape(ks, ks, 4, 4, nch, n_loc).permute(3, 5, 2, 4, 0, 1)
-    ker = ker.reshape(4 * n_loc, 4 * nch, ks, ks)
-    # fold children into parent channels, r = parity_x + 2 parity_y
-    spat = packed.reshape(sp, 2, sp, 2, nch)           # [yp, py, xp, px, ch]
-    folded = spat.permute(1, 3, 4, 0, 2).reshape(1, 4 * nch, sp, sp)
-    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-        out = F.conv2d(folded, ker, padding=ring)[0]    # [p*n_loc, yp, xp]
-    out = out.reshape(2, 2, n_loc, sp, sp)              # [py, px, loc, y, x]
-    return out.permute(3, 0, 4, 1, 2).reshape(s * s, n_loc)
+    npar = 1 << dim
+    sdims = tuple(range(dim))
+    # [(kz,) ky, kx, r (in), p (out), nch, n_loc] -> conv weight
+    # [out = (p, n_loc), in = (r, nch), (kz,) ky, kx]
+    ker = kflat.reshape((ks,) * dim + (npar, npar, nch, n_loc)).permute(
+        dim + 1, dim + 3, dim, dim + 2, *sdims)
+    ker = ker.reshape((npar * n_loc, npar * nch) + (ks,) * dim)
+    # fold children into parent channels, r = px + 2 py (+ 4 pz): the grid
+    # as [(zp, pz,) yp, py, xp, px, ch] -> [(pz,) py, px, ch, (zp,) yp, xp]
+    spat = packed.reshape((sp, 2) * dim + (nch,))
+    folded = spat.permute(*(2 * a + 1 for a in sdims), 2 * dim,
+                          *(2 * a for a in sdims))
+    folded = folded.reshape((1, npar * nch) + (sp,) * dim)
+    conv = F.conv3d if dim == 3 else F.conv2d
+    with _no_tf32():
+        out = conv(folded, ker, padding=ring)[0]   # [p*n_loc, (zp,) yp, xp]
+    # [(pz,) py, px, loc, (zp,) yp, xp] -> [(zp, pz,) yp, py, xp, px, loc]
+    out = out.reshape((2,) * dim + (n_loc,) + (sp,) * dim)
+    perm = sum(((dim + 1 + a, a) for a in sdims), ()) + (dim,)
+    return out.permute(*perm).reshape(s ** dim, n_loc)
 
 
 def _shift_table(dim: int, degree: int, top_rank: int, device):
@@ -358,23 +391,23 @@ def _monomials(y, expos, degree: int):
 
 def _l2l(local, sp: int, dim: int, ext, degree: int):
     """Shift parent expansions (side sp) to their 2^dim children (side
-    2 sp): child centre offset delta = (parity - 1/2) * child cell size.
-    2-D."""
-    if dim != 2:
-        raise NotImplementedError("the port's L2L is 2-D only (3-D bh is "
-                                  "ROADMAP item A10)")
+    2 sp): child centre offset delta = (parity - 1/2) * child cell size,
+    one shift matrix for each of the 2^dim parity classes."""
     expos, C = _shift_table(dim, degree, degree + 1, local.device)
     nl = local.shape[1]
+    npar = 1 << dim
     _, ccsz = _cell_sizes(ext, 2 * sp)
-    # delta of the 4 parity classes p = px + 2 py
-    half = torch.stack([0.5 * ccsz[0], 0.5 * ccsz[1]])
-    sign = _const(("l2l_sign",), local.device, lambda: torch.tensor(
-        [[-1.0, -1.0], [1.0, -1.0], [-1.0, 1.0], [1.0, 1.0]]))
-    mono = _monomials(sign * half, expos, degree)               # [4, M]
-    T = (mono[:, :, None, None] * C[None]).sum(1)               # [4, nl, nl]
-    out = (local.reshape(sp, 1, sp, 1, nl, 1)
-           * T.reshape(1, 2, 1, 2, nl, nl)).sum(-2)
-    return out.reshape(4 * sp * sp, nl)
+    # delta of the parity classes p = px + 2 py (+ 4 pz)
+    half = torch.stack([0.5 * ccsz[d] for d in range(dim)])
+    sign = _const(("l2l_sign", dim), local.device, lambda: torch.tensor(
+        [[1.0 if (p >> d) & 1 else -1.0 for d in range(dim)]
+         for p in range(npar)]))
+    mono = _monomials(sign * half, expos, degree)            # [npar, M]
+    T = (mono[:, :, None, None] * C[None]).sum(1)            # [npar, nl, nl]
+    # parents [(zp, 1,) yp, 1, xp, 1, nl, 1] x classes [(pz,) py, px, nl, nl]
+    out = (local.reshape((sp, 1) * dim + (nl, 1))
+           * T.reshape((1, 2) * dim + (nl, nl))).sum(-2)
+    return out.reshape(npar * sp ** dim, nl)
 
 
 def _l2p_table(local, dim: int, degree: int):
@@ -467,7 +500,11 @@ def _annulus_force_cells(packed, ext, levels: int, w_near: int, w_far: int,
     """Exact-target force from the finest-level annulus cells at every
     cell's first ``ci_cap`` slots: (force [ncells * ci_cap, dim], scatter
     ids). Sources are flat-shifted slices of the padded grid, one an
-    offset; out-of-grid wraps are masked from the cell coordinates."""
+    offset; out-of-grid wraps are masked from the cell coordinates. The
+    cells go through in chunks (a power of two, so it divides the grid)
+    whose [cells, slots, offsets] temporaries hold at most
+    ``_ANNULUS_ELEMS`` elements; a cell's result does not depend on the
+    chunking."""
     dim = len(ext[0])
     g = 1 << levels
     ncells = g ** dim
@@ -479,17 +516,24 @@ def _annulus_force_cells(packed, ext, levels: int, w_near: int, w_far: int,
                                                         dim)))  # [K, dim]
     kk = sum(offs[:, d] * g ** d for d in range(dim))
     coords = _iota_axes(ncells, g, dim, packed.device)
-    rows = Gp[maxk + torch.arange(ncells, device=packed.device)[:, None]
-              + kk[None, :]]                                  # [nc, K, ch]
-    ws = [coords[d][:, None] + offs[None, :, d] for d in range(dim)]
-    okc = torch.ones_like(ws[0], dtype=torch.bool)
-    for d in range(dim):
-        okc = okc & (ws[d] >= 0) & (ws[d] < g)
-    # targets [nc, ci, 1] against the K shell cells [nc, 1, K]
-    fo = _far_window_force([fi[..., d:d + 1] for d in range(dim)],
-                           [w[:, None, :] for w in ws], okc[:, None, :],
-                           rows[:, None], ext, g, eps2, order)
-    force = torch.stack([f.sum(-1) for f in fo], -1)
+    cc = max(1, min(ncells, _ANNULUS_ELEMS // (ci_cap * offs.shape[0])))
+    cc = 1 << (cc.bit_length() - 1)
+    out = []
+    for c0 in range(0, ncells, cc):
+        cells = torch.arange(c0, c0 + cc, device=packed.device)
+        rows = Gp[maxk + cells[:, None] + kk[None, :]]        # [cc, K, ch]
+        ws = [coords[d][c0:c0 + cc, None] + offs[None, :, d]
+              for d in range(dim)]
+        okc = torch.ones_like(ws[0], dtype=torch.bool)
+        for d in range(dim):
+            okc = okc & (ws[d] >= 0) & (ws[d] < g)
+        # targets [cc, ci, 1] against the K shell cells [cc, 1, K]
+        fo = _far_window_force(
+            [fi[c0:c0 + cc, :, d:d + 1] for d in range(dim)],
+            [w[:, None, :] for w in ws], okc[:, None, :], rows[:, None],
+            ext, g, eps2, order)
+        out.append(torch.stack([f.sum(-1) for f in fo], -1))
+    force = out[0] if len(out) == 1 else torch.cat(out)
     return force.reshape(ncells * ci_cap, dim), sidx
 
 

@@ -4,16 +4,19 @@ Counterpart of ``nbodyax/physics/near_pallas.py``. The TPU kernel there
 (``_near_kernel``) becomes the CUDA kernel in
 ``nbodyax_torch/csrc/near_kernel.cu``, built by ``physics/_build.py``.
 
-Both engines take the slot grid ``fslot`` f32[ncells, S, L] (each finest
-cell's first S cell-sorted bodies, zero rows past its count; a row is pos,
-[vel in elastic mode], mass, radius, id hi, id lo) and evaluate every
-cell's first ``ci`` slots against the S slots of each cell of its
-(2 ring + 1)^2 window, with the per-pair rules of ``_gathered_pair_accum``.
-They return f32[ncells, ci, 8], slot-major (``NUM_CH`` channels): force x,
-y, then reference gained mass / gained radius / died (0 or 1), momentum
-best mass (-inf when none) / parent id hi / parent id lo, or elastic dv x,
-y; unused channels are 0. That is the packed-lane order of the slot unsort
-in ``barneshut._near_field_cells``.
+Both engines take the slot grid ``fslot`` f32[ncells, S, L] of a grid of
+side g in ``dim`` = 2 or 3 dimensions (each finest cell's first S
+cell-sorted bodies, zero rows past its count; a row is pos, [vel in
+elastic mode], mass, radius, id hi, id lo, so L = dim + 4 or 2 dim + 4)
+and evaluate every cell's first ``ci`` slots against the S slots of each
+cell of its (2 ring + 1)^dim window, with the per-pair rules of
+``_gathered_pair_accum``. They return f32[ncells, ci, 8], slot-major
+(``NUM_CH`` channels): the dim force channels, then reference gained mass
+/ gained radius / died (0 or 1), momentum best mass (-inf when none) /
+parent id hi / parent id lo, or elastic dv; unused channels are 0. That is
+the packed-lane order of the slot unsort in
+``barneshut._near_field_cells``. The rows do not encode the dimension, so
+every entry point takes ``dim`` (default 2).
 
 - ``slots_near`` launches the kernel on a CUDA tensor and runs
   ``slots_near_reference`` on a CPU tensor; ``slots_near.launches`` counts
@@ -48,23 +51,34 @@ NEAR_MAX_CAP = 256      # most live partners a warp stages before it computes
 SHARED_LIMIT = 48 * 1024   # static-launch limit: no opt-in needed
 
 
-def near_plan(S: int, ring: int, L: int):
+def near_plan(S: int, ring: int, L: int, dim: int = 2):
     """B3's staging buffer: (capacity, shared bytes a block). A warp stages
     up to ``capacity`` live partners of its window: the window's
-    (2 ring + 1)^2 S slots rounded up to 32 and at most NEAR_MAX_CAP, so a
-    small window is staged whole and any S or ring takes a fixed amount of
-    shared memory. A partner is a float4 (x, y, m, r) and an int id, plus
-    a float2 velocity when L = 8 (elastic); each warp adds 32 ints of
-    compacted i lanes (the kernel's warp_words)."""
-    win = (2 * ring + 1) ** 2 * S
+    (2 ring + 1)^dim S slots rounded up to 32 and at most NEAR_MAX_CAP, so
+    a small window is staged whole and any S or ring takes a fixed amount
+    of shared memory. In 2-D a partner is a float4 (x, y, m, r) and an int
+    id, plus a float2 velocity when L = 8 (elastic): 5 or 7 words. In 3-D
+    it is a float4 (x, y, z, m), the radius and the id, plus three
+    velocity words when L = 10: 6 or 9 words. Each warp adds 32 ints of
+    compacted i lanes (the kernel's warp_words). The largest block, 3-D
+    elastic at the full capacity, takes 4 x (256 x 9 + 32) words = 37,376
+    bytes, under the 48 KB a block may take without opting in."""
+    win = (2 * ring + 1) ** dim * S
     cap = min(NEAR_MAX_CAP, -(-win // 32) * 32)
-    words = cap * (7 if L == 8 else 5) + 32
-    return cap, NEAR_WARPS * words * 4
+    vel = L == 2 * dim + 4
+    per = (9 if vel else 6) if dim == 3 else (7 if vel else 5)
+    return cap, NEAR_WARPS * (cap * per + 32) * 4
 
 
 def _check(fslot, mode, ci, g, dim):
     if mode not in MODES:
         raise ValueError(f"unknown collision mode {mode!r}")
+    if dim not in (2, 3):
+        raise ValueError(f"the near field runs in 2 or 3 dimensions, got "
+                         f"dim={dim}")
+    if fslot.dim() != 3:
+        raise ValueError(f"fslot must be f32[g^dim, S, L], got "
+                         f"{tuple(fslot.shape)}")
     ncells, S, L = fslot.shape
     if fslot.dtype != torch.float32 or ncells != g ** dim:
         raise ValueError(f"fslot must be f32[{g ** dim}, S, L], got "
@@ -76,29 +90,31 @@ def _check(fslot, mode, ci, g, dim):
 
 
 def slots_near(fslot, *, mode: str, eps2: float, growth: float, g: int,
-               ring: int, ci: int):
-    """Near-field channels f32[ncells, ci, 8] of the 2-D slot grid
-    ``fslot``: the CUDA kernel on a CUDA tensor, the plain version on a
-    CPU tensor."""
-    _check(fslot, mode, ci, g, 2)
+               ring: int, ci: int, dim: int = 2):
+    """Near-field channels f32[ncells, ci, 8] of the slot grid ``fslot``
+    of a ``dim``-dimensional grid: the CUDA kernel on a CUDA tensor, the
+    plain version on a CPU tensor."""
+    _check(fslot, mode, ci, g, dim)
     if fslot.device.type == "cpu":
         return slots_near_reference(fslot, mode=mode, eps2=eps2,
-                                    growth=growth, g=g, ring=ring, ci=ci)
+                                    growth=growth, g=g, ring=ring, ci=ci,
+                                    dim=dim)
     if fslot.device.type != "cuda":
         raise ValueError(f"no near kernel for device {fslot.device}")
     from nbodyax_torch.physics._build import load_library
     lib = load_library()
     fslot = fslot.contiguous()
-    if fslot.data_ptr() % 16:           # the kernel's 8- and 16-byte loads
-        fslot = fslot.clone()
     ncells, S, L = fslot.shape
-    cap, _ = near_plan(S, ring, L)
+    # the kernel loads a row of 8 by 16 bytes, of 6 or 10 by 8, of 7 by 4
+    if fslot.data_ptr() % (16 if L == 8 else 8 if L % 2 == 0 else 4):
+        fslot = fslot.clone()
+    cap, _ = near_plan(S, ring, L, dim)
     out = torch.empty((ncells, ci, NUM_CH), dtype=torch.float32,
                       device=fslot.device)
     with torch.cuda.device(fslot.device):
         stream = torch.cuda.current_stream(fslot.device).cuda_stream
         err = lib.nbodyax_slots_near(fslot.data_ptr(), g, ring, S, ci, L,
-                                     cap, MODES.index(mode),
+                                     cap, MODES.index(mode), dim,
                                      float(np.float32(eps2)),
                                      float(np.float32(growth)),
                                      out.data_ptr(), stream)

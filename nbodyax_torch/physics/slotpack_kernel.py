@@ -10,10 +10,13 @@ transpose, no 128-lane padding), and it handles every occupancy: the TPU
 kernel's static capacity and its runtime fallback have no counterpart.
 
 - ``pack_slots(sf, starts, ends, S, moments=None)`` launches B4 (rows) or,
-  with ``moments=(pos, mass, ext, levels)``, B5 (rows and the f32[ncells, 6]
-  order-2 moments of a 2-D grid) on a CUDA tensor, and the plain versions on
-  a CPU tensor. ``pack_slots.launches`` and ``pack_slots.moment_launches``
-  count the kernel launches.
+  with ``moments=(pos, mass, ext, levels)``, B5 (rows and the order-2
+  moments f32[ncells, 6] of a 2-D grid or f32[ncells, 10] of a 3-D one, by
+  the width of ``pos``) on a CUDA tensor, and the plain versions on a CPU
+  tensor. Rows are ``dim + 4`` wide, or ``2 dim + 4`` in elastic mode: 6
+  and 8 in 2-D, 7 and 10 in 3-D (``ROW_WIDTHS``); any other width is
+  refused. ``pack_slots.launches`` and ``pack_slots.moment_launches`` count
+  the kernel launches.
 - ``moment_plan`` is the wrapper's one host-side choice: the chunks of
   B5's first pass, which reduces the cells of more than MOMENT_CHUNK
   bodies in pieces, and the scratch its partials take.
@@ -31,17 +34,27 @@ from nbodyax_torch.physics.bh_grid import (_cell_sizes, _cells,
                                            _flatten_cells, _moment_pairs)
 
 __all__ = ["pack_slots", "build_slot_grid_reference",
-           "finest_moments_reference", "moment_plan", "MOMENT_CHUNK"]
+           "finest_moments_reference", "moment_plan", "MOMENT_CHUNK",
+           "ROW_WIDTHS", "num_moments"]
 
 MOMENT_CHUNK = 256      # sorted bodies a warp of B5's chunk pass (kChunk)
+# row widths of the sorted pack, by dimension: dim + 4, and 2 dim + 4 with
+# velocities (elastic mode)
+ROW_WIDTHS = {2: (6, 8), 3: (7, 10)}
 
 
-def moment_plan(n: int):
+def num_moments(dim: int) -> int:
+    """Order-2 moments of a cell: m, m r_a, m r_a r_b (a <= b)."""
+    return 1 + dim + dim * (dim + 1) // 2
+
+
+def moment_plan(n: int, dim: int = 2):
     """B5's chunk pass over the n sorted bodies: (chunks, scratch floats).
-    Each chunk of MOMENT_CHUNK bodies writes two partials of 6 moments
-    (the cells of more than MOMENT_CHUNK bodies that it meets)."""
+    Each chunk of MOMENT_CHUNK bodies writes two partials of
+    ``num_moments(dim)`` floats, 6 in 2-D and 10 in 3-D (the cells of more
+    than MOMENT_CHUNK bodies that it meets)."""
     chunks = -(-n // MOMENT_CHUNK)
-    return chunks, chunks * 2 * 6
+    return chunks, chunks * 2 * num_moments(dim)
 
 
 def build_slot_grid_reference(sf, starts, ends, n: int, ncells: int, S: int):
@@ -74,10 +87,36 @@ def finest_moments_reference(pos, mass, ext, levels: int):
     return out.index_add_(0, flat, torch.stack(chans, 1).double()).float()
 
 
+def _check(sf, starts, S: int, moments):
+    """Raise on a pack the kernels do not take: rows other than f32 of a
+    2-D or 3-D width, S out of range, and with moments a ``pos`` whose
+    dimension does not fit the rows or the cell count."""
+    if sf.dtype != torch.float32 or sf.dim() != 2:
+        raise ValueError(f"sf must be f32[n + 1, L], got {sf.dtype} "
+                         f"{tuple(sf.shape)}")
+    L, ncells = sf.shape[1], starts.shape[0]
+    if not any(L in w for w in ROW_WIDTHS.values()):
+        raise ValueError(f"sf rows must be 6 or 8 (2-D) or 7 or 10 (3-D) "
+                         f"wide, got L={L}")
+    if not 0 < S <= 1024:
+        raise ValueError(f"S must be in [1, 1024], got {S}")
+    if moments is None:
+        return
+    pos, _, _, levels = moments
+    dim = pos.shape[-1]
+    if dim not in ROW_WIDTHS or L not in ROW_WIDTHS[dim]:
+        raise ValueError(f"no slot-pack moment kernel for {dim}-D positions "
+                         f"with rows of {L}")
+    if (1 << levels) ** dim != ncells:
+        raise ValueError(f"levels={levels} in {dim}-D does not match the "
+                         f"{ncells} cells of starts")
+
+
 def pack_slots(sf, starts, ends, S: int, moments=None):
     """Slot grid ``[ncells, S, L]`` of the sorted pack ``sf[n + 1, L]``
     (and, with ``moments=(pos, mass, ext, levels)``, the finest moments).
     A CUDA tensor goes to the kernel, a CPU tensor to the plain versions."""
+    _check(sf, starts, S, moments)
     n, ncells = sf.shape[0] - 1, starts.shape[0]
     if sf.device.type == "cpu":
         rows = build_slot_grid_reference(sf, starts, ends, n, ncells, S)
@@ -97,13 +136,8 @@ def _launch(sf, starts, ends, S: int, moments):
     from nbodyax_torch.physics._build import load_library
     lib = load_library()
     ncells, L = starts.shape[0], sf.shape[1]
-    if sf.dtype != torch.float32 or sf.dim() != 2 or L > 8:
-        raise ValueError(f"sf must be f32[n + 1, L <= 8], got {sf.dtype} "
-                         f"{tuple(sf.shape)}")
-    if not 0 < S <= 1024:
-        raise ValueError(f"S must be in [1, 1024], got {S}")
     sf = sf.contiguous()
-    if sf.data_ptr() % 8:               # the kernel's 8-byte loads
+    if L % 2 == 0 and sf.data_ptr() % 8:   # 8-byte loads of even rows
         sf = sf.clone()
     starts = starts.to(torch.int64).contiguous()
     ends = ends.to(torch.int64).contiguous()
@@ -117,25 +151,19 @@ def _launch(sf, starts, ends, S: int, moments):
             mom = None
         else:
             pos, _, ext, levels = moments
-            if pos.shape[-1] != 2:
-                raise NotImplementedError(
-                    "the slot-pack moment kernel is 2-D only (3-D bh is "
-                    "ROADMAP item A10)")
+            dim = pos.shape[-1]
             g = 1 << levels
-            if g * g != ncells:
-                raise ValueError(f"levels={levels} does not match the "
-                                 f"{ncells} cells of starts")
             mins, csz = _cell_sizes(ext, g)
-            geom = torch.stack([mins[0], mins[1], csz[0], csz[1]]).to(
+            geom = torch.stack([*mins, *csz]).to(
                 device=sf.device, dtype=torch.float32).contiguous()
-            mom = torch.empty((ncells, 6), dtype=torch.float32,
-                              device=sf.device)
-            chunks, scratch = moment_plan(sf.shape[0] - 1)
+            mom = torch.empty((ncells, num_moments(dim)),
+                              dtype=torch.float32, device=sf.device)
+            chunks, scratch = moment_plan(sf.shape[0] - 1, dim)
             part = torch.empty((scratch,), dtype=torch.float32,
                                device=sf.device)
             err = lib.nbodyax_slot_pack_moments(
                 sf.data_ptr(), L, starts.data_ptr(), ends.data_ptr(), ncells,
-                S, g, geom.data_ptr(), chunks, part.data_ptr(),
+                S, g, dim, geom.data_ptr(), chunks, part.data_ptr(),
                 rows.data_ptr(), mom.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"slot-pack kernel launch failed: CUDA error {err}")

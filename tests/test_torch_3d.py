@@ -648,15 +648,19 @@ def test_cli_runs_3d(tmp_path, capsys):
 
 
 def test_bh_in_3d_raises_and_names_its_item():
-    """3-D bh (its kernels' 3-D forms, the 3-D M2L and L2L) is ROADMAP
-    item A10: a direct 3-D call raises and says so, and so does the
-    driver."""
+    """3-D bh runs on a single device (tests/test_torch_bh_3d.py and
+    test_torch_bh_3d_slice.py hold it to nbodyax): a direct 3-D call gives
+    3-D accumulators, and the driver runs it. What is left, sharded 3-D bh,
+    raises and names ROADMAP item A11."""
     from nbodyax_torch.physics.barneshut import bh_accumulators
     arrays = tensors(random_state_3d(256, seed=8))
-    with pytest.raises(NotImplementedError, match="A10"):
-        bh_accumulators(*arrays, eps=10.0, mode="reference", levels=3,
-                        neighbor_k=64)
+    acc = bh_accumulators(*arrays, eps=10.0, mode="reference", levels=3,
+                          neighbor_k=64)
+    assert acc.force.shape == (256, 3) and bool(acc.force[:, 2].any())
     cfg = SimConfig(particle_count=64, total_iterations=1, dimensions=3,
                     force_model="bh", save_images=False)
-    with pytest.raises(NotImplementedError, match="A10"):
+    assert run_simulation(cfg, device="cpu",
+                          quiet=True).state.pos.shape == (64, 3)
+    cfg.shards = 2
+    with pytest.raises(NotImplementedError, match="A11"):
         run_simulation(cfg, device="cpu", quiet=True)

@@ -133,7 +133,8 @@ def test_missing_config_errors(tmp_path, capsys):
 @pytest.mark.parametrize("override,item", [
     (dict(checkpoint_every=5), "A8"), (dict(resume_from="x.npz"), "A8"),
     (dict(compact_every=5), "A8"), (dict(energy_every=10), "A8"),
-    (dict(force_model="bh", dimensions=3), "A10"), (dict(shards=2), "A11"),
+    (dict(force_model="bh", dimensions=3, shards=2), "A11"),
+    (dict(shards=2), "A11"),
     (dict(dimensions=3, scene="three_body"), "A3"),
     (dict(adaptive_dt=True), "A5"),
     (dict(scene="galaxy"), "A3"),

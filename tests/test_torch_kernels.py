@@ -590,15 +590,15 @@ def test_autograd_function_3d_on_the_card(cuda, mode):
 NEAR_GATE = 2e-5    # of the channel's largest value (test_barneshut.py:385)
 
 
-def bh_grid_inputs(n, seed, dev, levels, need_vel, crowd=True):
+def bh_grid_inputs(n, seed, dev, levels, need_vel, crowd=True, dim=2):
     """A slot grid's inputs on ``dev``: a quarter of the bodies crowded
     into the centre cells, body 7 dead, the rest out to the grid edges."""
     from nbodyax_torch.physics.bh_grid import _extent, _partner_structure
     rng = np.random.RandomState(seed)
-    pos = rng.uniform(-1e5, 1e5, (n, 2)).astype(np.float32)
+    pos = rng.uniform(-1e5, 1e5, (n, dim)).astype(np.float32)
     if crowd:
-        pos[: n // 4] = rng.uniform(-30, 30, (n // 4, 2))
-    vel = rng.uniform(-3, 3, (n, 2)).astype(np.float32)
+        pos[: n // 4] = rng.uniform(-30, 30, (n // 4, dim))
+    vel = rng.uniform(-3, 3, (n, dim)).astype(np.float32)
     mass = rng.uniform(1e4, 1e17, n).astype(np.float32)
     mass[7] = 0.0
     radius = rng.uniform(50, 200, n).astype(np.float32)
@@ -695,24 +695,24 @@ def test_bh_accumulators_kernels_match_plain_engine(cuda):
 LIVE_COUNTS = [0, 1, 2, 3, 6, 11, 16, 17, 18, 21, 25, 31, 32, 33, 40]
 
 
-def manual_slot_grid(g, S, counts, seed, vel, id_base=0):
-    """A slot grid f32[g * g, S, L] built by hand: cell c holds
-    ``counts[c % len(counts)]`` bodies in its own 100 x 100 square (radii
-    5-40, so pairs overlap within and across cells), then zero rows. In an
-    even cell of three or more, slot 1 is a dead body (mass 0, its id
-    kept), so the live slots are not a prefix. Ids count up from
+def manual_slot_grid(g, S, counts, seed, vel, id_base=0, dim=2):
+    """A slot grid f32[g^dim, S, L] built by hand: cell c holds
+    ``counts[c % len(counts)]`` bodies in its own 100-wide square (cube in
+    3-D; radii 5-40, so pairs overlap within and across cells), then zero
+    rows. In an even cell of three or more, slot 1 is a dead body (mass 0,
+    its id kept), so the live slots are not a prefix. Ids count up from
     ``id_base``."""
     rng = np.random.RandomState(seed)
-    L = 8 if vel else 6
-    grid = np.zeros((g * g, S, L), np.float32)
+    L = (2 * dim if vel else dim) + 4
+    grid = np.zeros((g ** dim, S, L), np.float32)
     nid = id_base
-    for c in range(g * g):
+    for c in range(g ** dim):
         k = counts[c % len(counts)]
-        cx, cy = c % g, c // g
+        cell = [(c // g ** d) % g for d in range(dim)]     # x fastest
         for s in range(k):
-            row = [(cx + rng.uniform()) * 100.0, (cy + rng.uniform()) * 100.0]
+            row = [(cd + rng.uniform()) * 100.0 for cd in cell]
             if vel:
-                row += list(rng.uniform(-3, 3, 2))
+                row += list(rng.uniform(-3, 3, dim))
             dead = s == 1 and k >= 3 and c % 2 == 0
             mass = 0.0 if dead else rng.uniform(1, 100)
             row += [mass, rng.uniform(5, 40), nid >> 12, nid & 0xFFF]
@@ -721,41 +721,40 @@ def manual_slot_grid(g, S, counts, seed, vel, id_base=0):
     return torch.from_numpy(grid)
 
 
-def tie_slot_grid(S):
-    """Cell 0 of a 2 x 2 grid: body A (mass 50, id 9) and three bodies of
-    mass 500 at A's place (ids 10, 5, 7, in that slot order), all
+def tie_slot_grid(S, dim=2):
+    """Cell 0 of a 2 x 2 (x 2) grid: body A (mass 50, id 9) and three
+    bodies of mass 500 at A's place (ids 10, 5, 7, in that slot order), all
     overlapping: A's parent is id 5, which is neither the first staged
     partner nor in the first lane share; so is id 10's (5 beats it on the
     equal-mass tie)."""
-    L = 6
-    grid = np.zeros((4, S, L), np.float32)
+    L = dim + 4
+    grid = np.zeros((2 ** dim, S, L), np.float32)
     for s, (m, i) in enumerate([(50.0, 9), (500.0, 10), (500.0, 5),
                                 (500.0, 7)]):
-        grid[0, s, :2] = 50.0
+        grid[0, s, :dim] = 50.0
         grid[0, s, L - 4:] = [m, 1.0, i >> 12, i & 0xFFF]
     return torch.from_numpy(grid)
 
 
-def chunk_counts_state(counts, levels, seed, n_dead=10):
+def chunk_counts_state(counts, levels, seed, n_dead=10, dim=2):
     """pos, vel, mass, radius with exactly ``counts[c]`` live bodies in
-    cell c of the 2^levels grid over [0, 1000]^2 (two bodies pin the
+    cell c of the 2^levels grid over [0, 1000]^dim (two bodies pin the
     extent's corners), plus ``n_dead`` dead ones."""
     rng = np.random.RandomState(seed)
     g = 1 << levels
     w = 1000.0 / g
     pos = []
     for c, k in enumerate(counts):
-        cx, cy = c % g, c // g
-        pos.append(np.stack([rng.uniform((cx + 0.1) * w, (cx + 0.9) * w, k),
-                             rng.uniform((cy + 0.1) * w, (cy + 0.9) * w, k)],
-                            1))
+        cell = [(c // g ** d) % g for d in range(dim)]     # x fastest
+        pos.append(np.stack([rng.uniform((cd + 0.1) * w, (cd + 0.9) * w, k)
+                             for cd in cell], 1))
     pos = np.concatenate(pos).astype(np.float32)
-    pos[0] = (0.0, 0.0)                  # in cell 0
-    pos[-1] = (1000.0, 1000.0)           # in the last cell
+    pos[0] = 0.0                         # in cell 0
+    pos[-1] = 1000.0                     # in the last cell
     n = pos.shape[0] + n_dead
-    pos = np.concatenate([pos, rng.uniform(0, 1000, (n_dead, 2))]).astype(
+    pos = np.concatenate([pos, rng.uniform(0, 1000, (n_dead, dim))]).astype(
         np.float32)
-    vel = rng.uniform(-3, 3, (n, 2)).astype(np.float32)
+    vel = rng.uniform(-3, 3, (n, dim)).astype(np.float32)
     mass = rng.uniform(1e4, 1e17, n).astype(np.float32)
     mass[-n_dead:] = 0.0
     radius = rng.uniform(1, 5, n).astype(np.float32)
@@ -769,7 +768,7 @@ CHUNK_COUNTS = [256, 512, 1, 0, 255, 257, 300, 0, 700, 3, 0, 0, 1000, 256, 5,
                 77]
 
 
-def near_check(k, p, mode):
+def near_check(k, p, mode, dim=2):
     """B3 against its plain version at every slot: float channels within
     NEAR_GATE of the channel's largest value, died and ids exact, the
     momentum candidate sets equal."""
@@ -777,7 +776,8 @@ def near_check(k, p, mode):
     assert torch.equal(fin, torch.isfinite(k))
     k, p = torch.where(fin, k, 0.0), torch.where(fin, p, 0.0)
     scale = p.abs().amax((0, 1)).clamp(min=1e-30)
-    exact = {"reference": [4], "momentum": [3, 4]}.get(mode, [])
+    exact = {"reference": [dim + 2],
+             "momentum": [dim + 1, dim + 2]}.get(mode, [])
     for c in range(8):
         if c in exact:
             assert torch.equal(k[..., c], p[..., c]), c
@@ -844,22 +844,25 @@ def test_near_shared_bytes_match_plan(cuda):
     for S in (40, 48, 1024):
         for ring in (1, 2):
             for mode in NMODES:
-                L = 8 if mode == "elastic" else 6
-                cap, nbytes = near_plan(S, ring, L)
-                assert lib.nbodyax_near_shared_bytes(NMODES.index(mode),
-                                                     cap) == nbytes
+                for dim in (2, 3):
+                    L = (2 * dim if mode == "elastic" else dim) + 4
+                    cap, nbytes = near_plan(S, ring, L, dim)
+                    assert lib.nbodyax_near_shared_bytes(
+                        NMODES.index(mode), cap, dim) == nbytes
 
 
-def slot_pack_check(arrays, levels, S, dev):
+def slot_pack_check(arrays, levels, S, dev, need_vel=False):
     """B4 and B5 rows bitwise equal to the gather, B5 moments within 2e-6
-    of max(per-channel scale, 1), and both bitwise on a repeat."""
+    of max(per-channel scale, 1), and both bitwise on a repeat, in the
+    dimension of ``arrays``."""
     from nbodyax_torch.physics.bh_grid import _extent, _partner_structure
     from nbodyax_torch.physics.slotpack_kernel import (
         build_slot_grid_reference, finest_moments_reference, pack_slots)
     pos, vel, mass, radius = (torch.from_numpy(x).to(dev) for x in arrays)
     ext = _extent(pos, mass > 0)
-    st = _partner_structure(pos, vel, mass, radius, ext, 1 << levels, False)
-    n, ncells = pos.shape[0], 1 << (2 * levels)
+    st = _partner_structure(pos, vel, mass, radius, ext, 1 << levels,
+                            need_vel)
+    n, ncells = pos.shape[0], 1 << (pos.shape[1] * levels)
     want = build_slot_grid_reference(st[4], st[2], st[3], n, ncells, S)
     rows4 = pack_slots(st[4], st[2], st[3], S)
     rows5, mom = pack_slots(st[4], st[2], st[3], S,
@@ -890,3 +893,165 @@ def test_slot_pack_crowded_cell_beside_empty_cells(cuda):
     counts[0] = counts[-1] = 1
     counts[300] = 300
     slot_pack_check(chunk_counts_state(counts, 5, 33), 5, 40, cuda)
+
+
+# ---------------------------------------------------------------------------
+# The 3-D forms of B3, B4 and B5 (``dim = 3``: rows of 7 and 10, 10 moments)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("eps", [0.0, 100.0])
+@pytest.mark.parametrize("ring", [1, 2])
+def test_near_kernel_3d_matches_plain_version(cuda, mode, eps, ring):
+    """B3's 3-D form on a sorted state with a crowded centre, a dead body
+    and grid edges (8 x 8 x 8 cells): float channels within NEAR_GATE of
+    the channel's largest value at the live slots, flags and ids exact."""
+    from nbodyax_torch.physics.near_kernel import (slots_near,
+                                                   slots_near_reference)
+    from nbodyax_torch.physics.slotpack_kernel import pack_slots
+    _, _, st = bh_grid_inputs(16384, 3, cuda, 3, mode == "elastic", dim=3)
+    fslot = pack_slots(st[4], st[2], st[3], 48)
+    kw = dict(mode=mode, eps2=eps * eps, growth=0.1, g=8, ring=ring, ci=40,
+              dim=3)
+    k = slots_near(fslot, **kw)
+    p = slots_near_reference(fslot, **kw)
+    live = fslot[:, :40, 6 if mode == "elastic" else 3] > 0
+    near_check(k[live][None], p[live][None], mode, dim=3)
+    assert not k[..., 6:].any()
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("ring", [1, 2])
+def test_near_kernel_3d_live_counts_and_dead_mid_cell(cuda, mode, ring):
+    """test_near_kernel_live_counts_and_dead_mid_cell on a 4 x 4 x 4 grid:
+    cells of 0 to 40 live slots, dead bodies between live ones, every cell
+    within ring 2 of a face, ids past 2^24, eps 0 and 100, every slot held
+    (live or not), and bitwise repeats."""
+    from nbodyax_torch.physics.near_kernel import (slots_near,
+                                                   slots_near_reference)
+    fslot = manual_slot_grid(4, 48, LIVE_COUNTS, 21, mode == "elastic",
+                             id_base=(1 << 25) + 3, dim=3).to(cuda)
+    for eps in (0.0, 100.0):
+        kw = dict(mode=mode, eps2=eps * eps, growth=0.1, g=4, ring=ring,
+                  ci=40, dim=3)
+        k = slots_near(fslot, **kw)
+        near_check(k, slots_near_reference(fslot, **kw), mode, dim=3)
+        assert torch.equal(k, slots_near(fslot, **kw))
+
+
+def test_near_kernel_3d_momentum_tie_across_lane_shares(cuda):
+    from nbodyax_torch.physics.bh_grid import _unpack_id
+    from nbodyax_torch.physics.near_kernel import (slots_near,
+                                                   slots_near_reference)
+    fslot = tie_slot_grid(8, dim=3).to(cuda)
+    kw = dict(mode="momentum", eps2=0.0, growth=0.1, g=2, ring=1, ci=8,
+              dim=3)
+    k = slots_near(fslot, **kw)
+    near_check(k, slots_near_reference(fslot, **kw), "momentum", dim=3)
+    assert int(_unpack_id(k[0, 0, 4], k[0, 0, 5])) == 5
+    assert int(_unpack_id(k[0, 1, 4], k[0, 1, 5])) == 5
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_near_kernel_3d_s1024_crowded(cuda, mode):
+    """S = 1024 on a 2 x 2 x 2 grid: every window is the whole grid, up to
+    8,192 slots staged through the fixed buffer in many passes."""
+    from nbodyax_torch.physics.near_kernel import (slots_near,
+                                                   slots_near_reference)
+    counts = [1000, 3, 0, 700, 1024, 17]
+    fslot = manual_slot_grid(2, 1024, counts, 23, mode == "elastic",
+                             dim=3).to(cuda)
+    fslot[..., :3] = torch.floor(fslot[..., :3] / 100.0) * 100.0 \
+        + torch.remainder(fslot[..., :3], 10.0)
+    kw = dict(mode=mode, eps2=0.0, growth=0.1, g=2, ring=1, ci=64, dim=3)
+    k = slots_near(fslot, **kw)
+    near_check(k, slots_near_reference(fslot, **kw), mode, dim=3)
+    assert torch.equal(k, slots_near(fslot, **kw))
+
+
+def test_near_kernel_3d_misaligned_grid_and_counter(cuda):
+    """A slot grid of 7-float rows that starts 4 bytes into an allocation
+    (the wrapper copies nothing: such rows need only 4-byte alignment) and
+    one of 10-float rows that does (copied to 8 bytes): both equal the
+    aligned call; each call counts one launch."""
+    from nbodyax_torch.physics.near_kernel import slots_near
+    for vel in (False, True):
+        fslot = manual_slot_grid(2, 40, LIVE_COUNTS, 5, vel, dim=3).to(cuda)
+        mode = "elastic" if vel else "reference"
+        kw = dict(mode=mode, eps2=0.0, growth=0.1, g=2, ring=1, ci=32, dim=3)
+        buf = torch.zeros(fslot.numel() + 1, device=cuda)
+        off = buf[1:].view(fslot.shape)
+        off.copy_(fslot)
+        assert off.data_ptr() % 8 == 4
+        before = slots_near.launches
+        assert torch.equal(slots_near(off, **kw), slots_near(fslot, **kw))
+        assert slots_near.launches == before + 2
+
+
+@pytest.mark.parametrize("crowd", [False, True])
+@pytest.mark.parametrize("need_vel", [False, True])
+def test_slot_pack_kernels_3d_match_plain_versions(cuda, crowd, need_vel):
+    """B4 and B5 at L = 7 and L = 10: rows bitwise equal to the gather;
+    B5's 10 moments within 2e-6 of max(per-channel scale, 1)."""
+    from nbodyax_torch.physics.slotpack_kernel import (
+        build_slot_grid_reference, finest_moments_reference, pack_slots)
+    (pos, _, mass, _), ext, st = bh_grid_inputs(32768, 7, cuda, 3, need_vel,
+                                                crowd, dim=3)
+    assert st[4].shape[1] == (10 if need_vel else 7)
+    before = (pack_slots.launches, pack_slots.moment_launches)
+    for S in (80, 33):
+        rows4 = pack_slots(st[4], st[2], st[3], S)
+        rows5, mom = pack_slots(st[4], st[2], st[3], S,
+                                moments=(pos, mass, ext, 3))
+        want = build_slot_grid_reference(st[4], st[2], st[3], 32768, 512, S)
+        assert torch.equal(rows4, want) and torch.equal(rows5, want)
+        ref = finest_moments_reference(pos, mass, ext, 3)
+        assert mom.shape == ref.shape == (512, 10)
+        scale = ref.abs().amax(0).clamp(min=1.0)
+        assert float(((mom - ref).abs().amax(0) / scale).max()) < 2e-6
+    assert (pack_slots.launches, pack_slots.moment_launches) == (
+        before[0] + 2, before[1] + 2)
+
+
+@pytest.mark.parametrize("need_vel", [False, True])
+def test_slot_pack_3d_chunk_boundaries_and_crowded_cell(cuda, need_vel):
+    """B5's chunk pass in 3-D: chunk boundaries on cell edges and inside
+    cells (CHUNK_COUNTS over the first 16 of 64 cells), then a cell of
+    70,000 bodies beside empty cells."""
+    counts = CHUNK_COUNTS + [0] * 47 + [1]
+    st = slot_pack_check(chunk_counts_state(counts, 2, 31, dim=3), 2, 40,
+                         cuda, need_vel)
+    assert (st[3] - st[2]).tolist() == counts
+    counts = [0] * 512
+    counts[300] = 70000
+    counts[0] = counts[-1] = 1
+    counts[77] = 300
+    slot_pack_check(chunk_counts_state(counts, 3, 33, dim=3), 3, 80, cuda,
+                    need_vel)
+
+
+@pytest.mark.parametrize("mode", ["reference", "elastic"])
+def test_bh_accumulators_3d_kernels_match_plain_engine(cuda, mode):
+    """3-D bh_accumulators through B3 and B5 against the same call on the
+    plain torch engine (bhPallas=off) on the card, and through B4 with
+    bhFar=direct bhOrder=1."""
+    from nbodyax_torch.physics.barneshut import bh_accumulators
+    from nbodyax_torch.physics.slotpack_kernel import pack_slots
+    t, _, _ = bh_grid_inputs(16384, 9, cuda, 3, False, dim=3)
+    for far, order in (("fmm", 2), ("direct", 1)):
+        kw = dict(eps=0.0, mode=mode, levels=3, neighbor_k=0, near="slots",
+                  far=far, order=order)
+        before = (pack_slots.launches, pack_slots.moment_launches)
+        a = bh_accumulators(*t, near_kernel="on", **kw)
+        assert (pack_slots.launches - before[0],
+                pack_slots.moment_launches - before[1]) == (
+            (0, 1) if far == "fmm" else (1, 0))
+        b = bh_accumulators(*t, near_kernel="off", **kw)
+        assert float((a.force - b.force).abs().max()
+                     / b.force.abs().max()) < NEAR_GATE
+        assert torch.equal(a.died, b.died)
+        torch.testing.assert_close(a.gained_mass, b.gained_mass, rtol=1e-5,
+                                   atol=0)
+        if mode == "elastic":
+            assert float((a.dv - b.dv).abs().max()
+                         / b.dv.abs().max().clamp(min=1e-30)) < NEAR_GATE
