@@ -20,14 +20,26 @@ Phases, each of which exits non-zero on failure:
 3. run the external C++-oracle golden ``tests/golden/ref_n1k.npz`` for 200
    steps through the kernel, at the gates of tests/test_golden.py, and 20
    steps of the default scene through the kernel against the plain path;
+   then ``ref_n1k`` through the driver's graph windows (20 replays of a
+   10-step CUDA graph), every window's end at the same gates and bitwise
+   equal to the eager steps, B1 counted by replays;
 4. run the main path: ``nbodyax_torch.cli`` with the built-in default
-   config (N = 16,384, seed 1024) for 200 steps with a frame every 10, and
-   check the 20 P5 frames, the log and that every step launched the kernel;
+   config (N = 16,384, seed 1024) for 200 steps with a frame every 10, its
+   windows as CUDA-graph replays, and check the 20 P5 frames, the log and
+   that every step launched the kernel (counted by replays); the same
+   config through the driver's eager runner gives the same final state,
+   log values (timings aside) and frames, bit for bit;
+4b. the full default run, nothing cut (2,000 steps, 200 frames): ``Time
+   taken`` of graph windows and of the eager runner in turns (graph,
+   eager, eager, graph), the window count, the graph runs' peak device
+   memory, graph and eager bitwise equal; one graph run without frames;
 5. time the kernel against its plain version at N = 16,384 and alone at
    N = 131,072, with the splits chosen, the CUDA launches a call, pairs/s,
    the share of the bound and the SM clock under load; its own device time
    by the profiler beside the wrapper call's CUDA-event time; profile one
-   default-scene step;
+   default-scene step; profile 5 replays of a 10-step graph window: device
+   time a step, device idle share, peak device memory; the CLI's
+   ``--profile DIR`` over 50 steps of graph windows;
 6. compare the backward kernel with its plain version on the same inputs
    as phase 2, in all four modes at eps = 0 and in elastic mode at eps = 5,
    with a numpy-made cotangent, plus offset calls whose two j halves sum
@@ -39,8 +51,14 @@ Phases, each of which exits non-zero on failure:
    mass, through the kernels and through autograd of the torch oracle,
    with the launch counts the rollout must make;
 8. the shooting descent of tests/test_autodiff.py through the kernels;
-9. ``nbodyax_torch.cli`` with ``integrator=leapfrog`` for 20 steps, two
-   forward launches a step;
+9. ``nbodyax_torch.cli`` with ``integrator=leapfrog`` and with
+   ``yoshida4`` for 20 steps, two and four forward launches a step, graph
+   against eager as phase 4; the four collision modes under euler,
+   leapfrog and yoshida4 for 50 steps of the default scene, graph windows
+   against the eager runner, bitwise; ``adaptiveDt=1`` on the CLI for 200
+   steps, graph against eager, every ``dt_mean`` within ``dt_bounds``;
+   ``energyEvery=50`` through graph windows, the logged potential against
+   the CPU's ``potential_energy`` of the same state at rtol 1e-5;
 10. time the backward kernel against its plain version at N = 16,384 and
     alone at N = 131,072 (as phase 5, device time too), one gradient step
     against one forward step, and profile one gradient call;
@@ -57,6 +75,8 @@ Phases, each of which exits non-zero on failure:
     ``forceModel=bh`` and default bh knobs for 20 steps: the knobs it
     picked, ``bh_overflow`` 0, B3 and B5 once a step;
 15. ``bhFar=direct bhOrder=1`` on the CLI at N = 65,536: B4 once a step;
+    ``adaptiveDt=1`` with the FMM (the bh step's eager loop): B3 and B5
+    once a step, ``bh_overflow`` 0, ``dt_mean`` within ``dt_bounds``;
 16. B3, B4 and B5 timed against their plain versions at N = 1M (B4 also
     against one gather), with bounds from the run's cell occupancy and
     each kernel's own device time; B4 and B5 by device time on the crowded
@@ -73,13 +93,16 @@ Phases, each of which exits non-zero on failure:
     both forms split the partners alike;
 18. B2's 3-D form against its plain version as phase 6;
 19. the 3-D main path: ``nbodyax_torch.cli`` with ``--set dimensions=3``
-    for 200 steps, 20 P5 frames of the xy projection, ``momentum_z`` in
-    every log line, one B1 launch a step;
+    for 200 steps through graph windows, 20 P5 frames of the xy
+    projection, ``momentum_z`` in every log line, one B1 launch a step by
+    replays, and bitwise equal to the eager runner; then with
+    ``adaptiveDt=1`` as in phase 9;
 20. the 3-D gradient path: a 4-step euler rollout of the 3-D default
     scene through the kernels against autograd of the oracle, as phase 7;
 21. B1 and B2 in 3-D timed beside their 2-D calls at N = 16,384 (device
     time too), B1 alone at N = 1,048,576 in 3-D and 2-D (pairs/s and
-    their ratio, as bench/dim3.py records), and one profiled 3-D step;
+    their ratio, as bench/dim3.py records), one profiled 3-D step and a
+    profiled 3-D graph window, as phase 5;
 22. ``forceModel=bh`` with ``dimensions=3``: the slot-pack kernels' 3-D
     forms against their plain versions on examples/million_bodies.txt's
     scene in 3-D (N = 1,048,576 in a 1e6 cube, levels 5, S = 80) and on a
@@ -119,6 +142,8 @@ a checkout, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import hashlib
 import io
 import itertools
 import json
@@ -432,71 +457,383 @@ def phase_golden(dev, default_cfg):
           f"{d:.3e})")
 
 
-def phase_main_path(steps=STEPS, integrator="euler", dims=2):
-    """The CLI on the default config (with ``--set dimensions=3`` when
-    ``dims`` is 3); each step must launch the forward kernel once a force
-    pass (euler 1, leapfrog 2), and in 3-D every log line carries
-    ``momentum_z``."""
-    from nbodyax_torch import cli
-    from nbodyax_torch.physics.kernels import tile_accumulators_raw
+TIMING_KEYS = ("wall_ms", "steps_per_sec", "pairs_per_sec",
+               "equivalent_pairs_per_sec")
 
-    passes = {"euler": 1, "leapfrog": 2}[integrator]
+
+def cli_run(argv, eager=False, keep_frames=True, cfg_text=None):
+    """``nbodyax_torch.cli`` in a fresh temp dir, on ``cfg_text`` written
+    there as nbodyConfig.txt (without it the built-in default config), its
+    windows through CUDA graphs or, with ``eager``, through the driver's
+    eager runner (its private ``_eager`` switch; the CLI has no flag for
+    it). Returns a dict: stdout, rc, the run's RunResult, B1's launches,
+    the JSON log lines and the frames ({name: bytes}, or their sha256
+    digests without ``keep_frames``)."""
+    from nbodyax_torch import cli, driver
+    from nbodyax_torch.physics.kernels import tile_accumulators_raw
+    results = []
+
+    def run(*a, **k):
+        results.append(driver.run_simulation(*a, _eager=eager, **k))
+        return results[-1]
 
     with tempfile.TemporaryDirectory() as tmp:
         frames_dir = os.path.join(tmp, "frames")
-        cwd = os.getcwd()
-        buf = io.StringIO()
-        # no nbodyConfig.txt in the temp dir: the built-in default config
+        cwd, saved, buf = os.getcwd(), cli.run_simulation, io.StringIO()
+        if cfg_text is not None:
+            with open(os.path.join(tmp, "nbodyConfig.txt"), "w") as f:
+                f.write(cfg_text)
         os.chdir(tmp)
+        cli.run_simulation = run
         try:
             tile_accumulators_raw.launches = 0
             with contextlib.redirect_stdout(buf):
-                rc = cli.main(["--steps", str(steps), "--set",
-                               f"imagePath={frames_dir}", "--set",
-                               f"integrator={integrator}", "--set",
-                               f"dimensions={dims}"])
+                rc = cli.main(argv + ["--set", f"imagePath={frames_dir}"])
             launches = tile_accumulators_raw.launches
+            frames = read_frames(frames_dir, keep_frames)
         finally:
+            cli.run_simulation = saved
             os.chdir(cwd)
-        out = buf.getvalue()
-        check(rc == 0, f"cli exited {rc}")
-        check(launches == passes * steps,
-              f"kernel launched {launches} times in {steps} {integrator} "
-              f"steps")
-        taken = [l for l in out.splitlines() if l.startswith("Time taken: ")]
-        check(len(taken) == 1, "no 'Time taken:' line")
-        logs = [json.loads(l) for l in out.splitlines() if l.startswith("{")]
-        check(len(logs) == steps // 10 and logs[-1]["step"] == steps,
-              f"expected {steps // 10} log lines, got {len(logs)}")
-        last = logs[-1]
-        check(all(np.isfinite(v) for v in last.values()
-                  if isinstance(v, float)), f"non-finite log values: {last}")
-        check(0 < last["alive"] <= 16384, f"alive count {last['alive']}")
-        if dims == 3:
-            check(all("momentum_z" in rec for rec in logs),
-                  "a 3-D log line without momentum_z")
-        want = [f"iteration_{j}.ppm" for j in range(0, steps, FRAME_EVERY)]
-        got = sorted(os.listdir(frames_dir),
-                     key=lambda s: int(s.split("_")[1].split(".")[0]))
-        check(got == want, f"frames {got}")
-        header = b"P5\n1024 1024\n255\n"
-        for name in want:
-            with open(os.path.join(frames_dir, name), "rb") as f:
-                raw = f.read()
-            check(raw.startswith(header)
-                  and len(raw) == len(header) + 1024 * 1024,
-                  f"{name} is not a 1024x1024 P5 frame")
-            body = np.frombuffer(raw[len(header):], np.uint8)
-            check((body == 0).any() and (body == 254).any(),
-                  f"{name} has no bodies or no background")
+    out = buf.getvalue()
+    logs = [json.loads(l) for l in out.splitlines() if l.startswith("{")]
+    return {"out": out, "rc": rc, "result": results[-1] if results else None,
+            "launches": launches, "logs": logs, "frames": frames}
+
+
+def read_frames(frames_dir, keep=True):
+    """{name: bytes} of the frames in ``frames_dir`` (none if it is
+    missing), or their sha256 digests without ``keep``."""
+    frames = {}
+    for name in (os.listdir(frames_dir) if os.path.isdir(frames_dir)
+                 else ()):
+        with open(os.path.join(frames_dir, name), "rb") as f:
+            raw = f.read()
+        frames[name] = raw if keep else hashlib.sha256(raw).hexdigest()
+    return frames
+
+
+def same_run(a, b, label):
+    """Final state, every log value but the timings, every frame and the
+    window count of two runs: bit for bit, or fail."""
+    ra, rb = a["result"], b["result"]
+    check(ra is not None and rb is not None, f"{label}: a run did not end")
+    same = all(torch.equal(x, y) for x, y in zip(ra.state[:4], rb.state[:4]))
+    same &= torch.equal(ra.state.sim_time, rb.state.sim_time)
+    check(same, f"{label}: final states differ between graph and eager")
+
+    def strip(logs):
+        return [{k: v for k, v in rec.items() if k not in TIMING_KEYS}
+                for rec in logs]
+    check(strip(a["logs"]) == strip(b["logs"]),
+          f"{label}: log values differ between graph and eager")
+    check(a["frames"] == b["frames"],
+          f"{label}: frames differ between graph and eager")
+    check(ra.windows == rb.windows, f"{label}: window counts differ")
+    return (f"state, {len(a['logs'])} log lines and {len(a['frames'])} "
+            f"frames bitwise equal")
+
+
+def phase_main_path(steps=STEPS, integrator="euler", dims=2, sets=()):
+    """The CLI on the default config (with ``--set dimensions=3`` when
+    ``dims`` is 3), its windows through CUDA graphs: each step must launch
+    the forward kernel once a force pass (euler 1, leapfrog 2, yoshida4
+    4), counted by replays; in 3-D every log line carries ``momentum_z``.
+    Then the same config through the eager runner: final state, logs
+    (timings aside) and frames bitwise equal. Returns B1's launches in
+    the graph run."""
+    passes = {"euler": 1, "leapfrog": 2, "yoshida4": 4}[integrator]
+    argv = ["--steps", str(steps), "--set", f"integrator={integrator}",
+            "--set", f"dimensions={dims}"]
+    for kv in sets:
+        argv += ["--set", kv]
+    g = cli_run(argv)
+    e = cli_run(argv, eager=True)
+    out, launches, logs = g["out"], g["launches"], g["logs"]
+    check(g["rc"] == 0 and e["rc"] == 0, f"cli exited {g['rc']}, {e['rc']}")
+    check(launches == passes * steps,
+          f"kernel launched {launches} times in {steps} {integrator} "
+          f"steps of graph windows")
+    check(e["launches"] == passes * steps,
+          f"kernel launched {e['launches']} times in {steps} eager steps")
+    taken = time_taken(out)
+    check(len(logs) == steps // 10 and logs[-1]["step"] == steps,
+          f"expected {steps // 10} log lines, got {len(logs)}")
+    last = logs[-1]
+    check(all(np.isfinite(v) for v in last.values()
+              if isinstance(v, float)), f"non-finite log values: {last}")
+    check(0 < last["alive"] <= 16384, f"alive count {last['alive']}")
+    if dims == 3:
+        check(all("momentum_z" in rec for rec in logs),
+              "a 3-D log line without momentum_z")
+    want = [f"iteration_{j}.ppm" for j in range(0, steps, FRAME_EVERY)]
+    check(sorted(g["frames"]) == sorted(want), f"frames {sorted(g['frames'])}")
+    header = b"P5\n1024 1024\n255\n"
+    for name in want:
+        raw = g["frames"][name]
+        check(raw.startswith(header)
+              and len(raw) == len(header) + 1024 * 1024,
+              f"{name} is not a 1024x1024 P5 frame")
+        body = np.frombuffer(raw[len(header):], np.uint8)
+        check((body == 0).any() and (body == 254).any(),
+              f"{name} has no bodies or no background")
+    same = same_run(g, e, f"main path {dims}-D {integrator} {sets}")
     extra = (f", momentum_z {last['momentum_z']:.6g} in every log line"
              if dims == 3 else "")
-    print(f"main path ({dims}-D, {integrator}): {steps} steps, {len(want)} "
-          f"P5 frames, {launches} kernel launches, {taken[0]}, "
-          f"{last['alive']} alive{extra}")
+    label = f"{dims}-D, {integrator}" + (f", {' '.join(sets)}" if sets else "")
+    print(f"main path ({label}): {steps} steps in {g['result'].windows} "
+          f"graph windows, {len(want)} P5 frames, {launches} kernel launches "
+          f"by replays, Time taken: {taken}, {last['alive']} alive{extra}; "
+          f"eager runner: {same}")
     print(f"main path rates (device-timed): {last['steps_per_sec']:.6g} "
           f"steps/s, {last['pairs_per_sec']:.6g} pairs/s")
-    return launches
+    return launches, g, e
+
+
+def phase_full_default_run():
+    """The reference default workload through the CLI with nothing cut:
+    2,000 steps and 200 frames, graph windows and the eager runner in
+    turns (graph, eager, eager, graph), each run's ``Time taken``, the
+    windows, the peak device memory of the graph runs; final states, logs
+    and frames (by digest) bitwise equal. Then one graph run with
+    ``--no-images``, which leaves the frames' render and disk writes out."""
+    runs = {"graph": [], "eager": []}
+    peaks = []
+    for kind in ("graph", "eager", "eager", "graph"):
+        torch.cuda.reset_peak_memory_stats()
+        r = cli_run([], eager=kind == "eager", keep_frames=False)
+        check(r["rc"] == 0 and len(r["frames"]) == 200
+              and r["logs"][-1]["step"] == 2000,
+              f"full default run ({kind}): rc {r['rc']}, "
+              f"{len(r['frames'])} frames")
+        check(r["launches"] == 2000, f"full default run ({kind}): B1 "
+              f"launched {r['launches']} times in 2,000 steps")
+        r["taken"] = time_taken(r["out"])
+        if kind == "graph":
+            peaks.append(torch.cuda.max_memory_allocated())
+        runs[kind].append(r)
+    same = same_run(runs["graph"][0], runs["eager"][0], "full default run")
+    bare = cli_run(["--no-images"])
+    check(bare["rc"] == 0 and bare["launches"] == 2000,
+          "full default run without frames")
+    g = runs["graph"][0]["result"]
+    print(f"full default run (N=16384, 2,000 steps, 200 frames): Time taken "
+          f"graph {[r['taken'] for r in runs['graph']]} s, eager "
+          f"{[r['taken'] for r in runs['eager']]} s (turns graph, eager, "
+          f"eager, graph); {g.windows} windows; B1 2,000 launches each; "
+          f"peak device memory of the graph runs "
+          f"{[round(p / 2 ** 30, 4) for p in peaks]} GiB; graph vs eager: "
+          f"{same}; graph without frames: Time taken "
+          f"{time_taken(bare['out'])} s in {bare['result'].windows} windows")
+    return runs
+
+
+def time_taken(out):
+    """The seconds of a CLI run's ``Time taken:`` line."""
+    taken = [l for l in out.splitlines() if l.startswith("Time taken: ")]
+    check(len(taken) == 1, "no 'Time taken:' line")
+    return float(taken[0].split()[-1])
+
+
+def phase_golden_graph(dev):
+    """``ref_n1k`` through graph windows: the driver's graph runner on the
+    pallas backend replays a 10-step graph 20 times, and every window's
+    end state passes tests/test_golden.py's gates and equals the eager
+    step's bit for bit."""
+    from nbodyax_torch.backends import build_accum_fn
+    from nbodyax_torch.config import SimConfig
+    from nbodyax_torch.driver import _GraphWindows
+    from nbodyax_torch.physics.kernels import tile_accumulators_raw
+    from nbodyax_torch.physics.step import PhysicsParams, make_step
+    from nbodyax_torch.scenes import init_scene
+
+    with np.load(os.path.join(HERE, "tests", "golden", "ref_n1k.npz")) as z:
+        gpos, gvel, gmass, gradius = z["pos"], z["vel"], z["mass"], z["radius"]
+    field = 100000
+    cfg = SimConfig(particle_count=1024, field_width=field,
+                    field_height=field, timestep=0.2, seed=1024)
+    p = PhysicsParams.from_config(cfg)
+    step = make_step(p, accum_fn=build_accum_fn("pallas", p, dev))
+    eager = init_scene(cfg, device=dev)
+    runner = _GraphWindows(step, eager, cfg, 0, 10, None)
+    tile_accumulators_raw.launches = 0
+    worst = 0.0
+    for w in range(1, 21):
+        runner.advance(10, False)
+        for _ in range(10):
+            eager = step(eager)
+        s, st = 10 * w, runner.state
+        check(st.step == s and all(torch.equal(x, y) for x, y in
+                                   zip(st[:4], eager[:4])),
+              f"ref_n1k: graph window state differs from eager at step {s}")
+        mass = st.mass.cpu().numpy()
+        check(np.array_equal(mass > 0, gmass[s] > 0),
+              f"ref_n1k (graph): alive mask diverged at step {s}")
+        check(np.allclose(mass, gmass[s], rtol=1e-6, atol=0)
+              and np.allclose(st.radius.cpu().numpy(), gradius[s],
+                              rtol=1e-6, atol=0),
+              f"ref_n1k (graph): mass or radius at step {s}")
+        a2 = (mass > 0)[:, None]
+        for name, got, want in (("pos", st.pos, gpos[s]),
+                                ("vel", st.vel, gvel[s])):
+            d = np.abs(np.where(a2, got.cpu().numpy(), 0)
+                       - np.where(a2, want, 0)).max()
+            worst = max(worst, d / field)
+            check(d <= 2e-4 * field, f"ref_n1k (graph): {name} at step {s}")
+    launches = tile_accumulators_raw.launches - 200     # the eager steps'
+    check(launches == 200, f"ref_n1k graph windows: B1 counted {launches} "
+          f"launches by replays in 200 steps")
+    print(f"golden ref_n1k through graph windows: 20 replays of a 10-step "
+          f"graph, every window end within the gates (worst pos/vel "
+          f"{worst:.3e} of the field) and bitwise equal to the eager steps; "
+          f"B1 {launches} launches by replays")
+
+
+def run_pair(cfg, state):
+    """``run_simulation`` on ``cfg`` from ``state`` through graph windows
+    and through the eager runner; returns both dicts as ``cli_run``'s (no
+    stdout)."""
+    from nbodyax_torch import driver
+    from nbodyax_torch.physics.kernels import tile_accumulators_raw
+    out = []
+    for eager in (False, True):
+        with tempfile.TemporaryDirectory() as tmp:
+            c = dataclasses.replace(cfg, image_path=os.path.join(tmp, "f"),
+                                    log_path=os.path.join(tmp, "log.jsonl"))
+            tile_accumulators_raw.launches = 0
+            res = driver.run_simulation(c, device="cuda", quiet=True,
+                                        state=state, _eager=eager)
+            n = tile_accumulators_raw.launches
+            with open(c.log_path) as f:
+                logs = [json.loads(l) for l in f]
+            frames = read_frames(c.image_path)
+        out.append({"result": res, "launches": n, "logs": logs,
+                    "frames": frames})
+    return out
+
+
+def phase_modes_graph(dev):
+    """The four collision modes under euler, leapfrog and yoshida4 for 50
+    steps of the default scene (N = 16,384, a frame every 10), graph
+    windows against the eager runner, bitwise; B1 passes x 50 each."""
+    from nbodyax_torch.config import SimConfig
+    from nbodyax_torch.scenes import init_scene
+    scene = init_scene(SimConfig(), device=dev)
+    rows = []
+    for mode in ("reference", "momentum", "elastic", "none"):
+        for integrator, passes in (("euler", 1), ("leapfrog", 2),
+                                   ("yoshida4", 4)):
+            cfg = SimConfig(total_iterations=50, collision_mode=mode,
+                            integrator=integrator)
+            g, e = run_pair(cfg, scene)
+            label = f"{mode} {integrator}"
+            same_run(g, e, label)
+            check(g["launches"] == e["launches"] == passes * 50,
+                  f"{label}: B1 launched {g['launches']} (graph), "
+                  f"{e['launches']} (eager) times in 50 steps")
+            rows.append(f"{label} {g['logs'][-1]['alive']}")
+    print(f"modes x integrators, 50 steps at N=16384, graph vs eager: state, "
+          f"logs and frames bitwise equal, B1 passes x 50 launches; alive "
+          f"at the end: {', '.join(rows)}")
+
+
+def phase_adaptive(dims):
+    """``adaptiveDt=1`` on the default scene for 200 steps (the CLI, graph
+    windows against the eager runner, bitwise); every log line's dt_mean
+    within dt_bounds and sim_time rising."""
+    from nbodyax_torch.config import SimConfig
+    from nbodyax_torch.physics.step import PhysicsParams
+    _, g, _ = phase_main_path(dims=dims, sets=("adaptiveDt=1",))
+    lo, hi = PhysicsParams.from_config(SimConfig(adaptive_dt=True)).dt_bounds
+    t = 0.0
+    for rec in g["logs"]:
+        check(lo * (1 - 1e-5) <= rec["dt_mean"] <= hi * (1 + 1e-5)
+              and rec["sim_time"] > t,
+              f"adaptive {dims}-D: dt_mean {rec['dt_mean']} at step "
+              f"{rec['step']} outside [{lo}, {hi}]")
+        t = rec["sim_time"]
+    dts = [r["dt_mean"] for r in g["logs"]]
+    print(f"adaptive dt {dims}-D: dt_mean {min(dts):.6g}-{max(dts):.6g} "
+          f"within [{lo:.6g}, {hi:.6g}], sim_time {t:.6g} after 200 steps")
+
+
+def phase_energy(dev):
+    """``energyEvery=50`` through graph windows on the default scene for
+    100 steps: the logged potential at step 100 against the CPU's
+    ``potential_energy`` of the same final state, rtol 1e-5."""
+    from nbodyax_torch.metrics import potential_energy
+    g = cli_run(["--steps", "100", "--no-images", "--set", "energyEvery=50"])
+    check(g["rc"] == 0, f"energy run exited {g['rc']}")
+    recs = {r["step"]: r for r in g["logs"]}
+    check(all(("potential_energy" in recs[s]) == (s % 50 == 0)
+              for s in recs), "potential_energy off its cadence")
+    st = g["result"].state
+    cpu = type(st)(*(t.cpu() for t in st[:4]), st.step, st.sim_time.cpu())
+    want = float(potential_energy(cpu))
+    got = recs[100]["potential_energy"]
+    rel = abs(got - want) / abs(want)
+    check(rel <= 1e-5, f"potential_energy on the card {got} vs CPU {want}")
+    print(f"energy: potential_energy at step 100 {got:.9g} on the card, "
+          f"{want:.9g} on the CPU (rel {rel:.3e}, gate 1e-5); total_energy "
+          f"{recs[100]['total_energy']:.9g}")
+
+
+def phase_profile_flag():
+    """The CLI's ``--profile DIR`` over 50 steps of graph windows (no
+    frames): the trace's kernel events hold B1's 50 replayed launches (and
+    the capture's warm-up step); the device's busy share of the span the
+    traced kernels cover."""
+    with tempfile.TemporaryDirectory() as tmp:
+        r = cli_run(["--steps", "50", "--no-images", "--profile", tmp])
+        check(r["rc"] == 0, f"--profile run exited {r['rc']}")
+        with open(os.path.join(tmp, "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+    kern = sorted((e for e in events if e.get("cat") == "kernel"),
+                  key=lambda e: e["ts"])
+    b1 = [e for e in kern if "pair_kernel<" in e.get("name", "")]
+    check(len(b1) >= 50, f"--profile traced {len(b1)} B1 kernels in 50 "
+          f"steps")
+    # windows 2-5: from the B1 launch that opens window 2 (after the
+    # capture's warm-up step and window 1) to the last kernel
+    t0 = b1[-40]["ts"]
+    late = [e for e in kern if e["ts"] >= t0]
+    busy = sum(e["dur"] for e in late)
+    span = max(e["ts"] + e["dur"] for e in late) - t0
+    print(f"--profile, 50 steps of graph windows: {len(kern)} kernel events, "
+          f"{len(b1)} of B1 (the capture's warm-up step included); windows "
+          f"2-5: device busy {busy / 1e3:.4f} ms of {span / 1e3:.4f} ms "
+          f"({100 * (1 - busy / span):.1f}% idle, log lines and fences "
+          f"between windows included)")
+
+
+def phase_graph_profile(dev, cfg, label):
+    """torch.profiler over 5 replays of the 10-step graph window (no frame)
+    on ``cfg``'s scene, captured beforehand: device time a step, device
+    idle share and heaviest kernels; CUDA events over 20 replays without
+    the profiler, the idle share inside a window from them; the peak
+    device memory of the window (state, warm-up and the graph's private
+    pool)."""
+    from nbodyax_torch.backends import build_accum_fn
+    from nbodyax_torch.driver import _GraphWindows
+    from nbodyax_torch.physics.step import PhysicsParams, make_step
+    from nbodyax_torch.scenes import init_scene
+    p = PhysicsParams.from_config(cfg)
+    step = make_step(p, accum_fn=build_accum_fn("pallas", p, dev))
+    state = init_scene(cfg, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    runner = _GraphWindows(step, state, cfg, 0, 10, None)
+    ms = profile_breakdown(lambda: runner.advance(10, False), 5,
+                           f"{label}, a 10-step graph window")
+    peak = torch.cuda.max_memory_allocated()
+    # without the profiler: CUDA events around 20 back-to-back replays
+    ev = time_ms(lambda: runner.advance(10, False), reps=20)
+    print(f"graph windows, {label}: {ms / 10:.4f} ms of device time a step; "
+          f"{ev / 10:.4f} ms a step by CUDA events over 20 replays without "
+          f"the profiler, so the device idles {100 * (1 - ms / ev):.1f}% "
+          f"inside a window; peak device memory {peak / 2 ** 30:.4f} GiB "
+          f"({(peak - base) / 2 ** 20:.1f} MiB above the scene)")
+    return ms / 10
 
 
 def time_ms(fn, reps=20, warm=2):
@@ -1200,18 +1537,6 @@ def phase_bh_vs_exact(dev):
         check(ok, f"bh collision channels differ from exact: {mode}")
 
 
-def run_cli(argv, cfg_text, tmp):
-    """Run nbodyax_torch.cli on ``cfg_text``; returns (stdout, rc)."""
-    from nbodyax_torch import cli
-    path = os.path.join(tmp, "nbodyConfig.txt")
-    with open(path, "w") as f:
-        f.write(cfg_text)
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        rc = cli.main(["--config", path] + argv)
-    return buf.getvalue(), rc
-
-
 def config_text(cfg):
     from nbodyax_torch.config import _KEYS
     out = []
@@ -1228,13 +1553,13 @@ def phase_bh_main_path(cfg):
     Returns (B3 launches, B5 launches)."""
     from nbodyax_torch.physics.near_kernel import slots_near
     from nbodyax_torch.physics.slotpack_kernel import pack_slots
-    with tempfile.TemporaryDirectory() as tmp:
-        torch.cuda.reset_peak_memory_stats()
-        slots_near.launches = 0
-        pack_slots.moment_launches = 0
-        out, rc = run_cli([], config_text(cfg), tmp)
-        b3, b5 = slots_near.launches, pack_slots.moment_launches
-        peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    slots_near.launches = 0
+    pack_slots.moment_launches = 0
+    r = cli_run([], cfg_text=config_text(cfg))
+    out, rc = r["out"], r["rc"]
+    b3, b5 = slots_near.launches, pack_slots.moment_launches
+    peak = torch.cuda.max_memory_allocated()
     check(rc == 0, f"bh cli exited {rc}")
     knobs = [l for l in out.splitlines() if l.startswith("bh auto-selected")]
     check(len(knobs) == 1, "no 'bh auto-selected' line")
@@ -1265,34 +1590,46 @@ def phase_bh_main_path(cfg):
     return b3, b5
 
 
-def phase_bh_direct(dims=2, mode="reference", far="direct", order=1):
+def phase_bh_direct(dims=2, mode="reference", far="direct", order=1,
+                    adaptive=False):
     """The CLI at N = 65,536 for 10 steps with ``bhNear=slots``. With
     ``bhFar=direct bhOrder=1`` the slots engine packs with B4 (no moments
     wanted) once a step, with the FMM with B5; B3 runs once a step either
-    way. In 3-D the rows are 7 wide, 10 in elastic mode. Returns the
-    launches of (B3, B4, B5)."""
+    way. In 3-D the rows are 7 wide, 10 in elastic mode. ``adaptive``:
+    ``adaptiveDt=1`` (the bh step's eager loop), every log line's dt_mean
+    within dt_bounds. Returns the launches of (B3, B4, B5)."""
     from nbodyax_torch.config import SimConfig
     from nbodyax_torch.physics.near_kernel import slots_near
     from nbodyax_torch.physics.slotpack_kernel import pack_slots
+    from nbodyax_torch.physics.step import PhysicsParams
     cfg = SimConfig(particle_count=65536, total_iterations=10,
                     save_images=False, force_model="bh", bh_far=far,
                     bh_order=order, bh_near="slots", dimensions=dims,
-                    collision_mode=mode)
-    with tempfile.TemporaryDirectory() as tmp:
-        slots_near.launches = 0
-        pack_slots.launches = pack_slots.moment_launches = 0
-        out, rc = run_cli([], config_text(cfg), tmp)
-        got = (slots_near.launches, pack_slots.launches,
-               pack_slots.moment_launches)
-    check(rc == 0, f"bh {far} {dims}-D {mode} cli exited {rc}")
+                    collision_mode=mode, adaptive_dt=adaptive)
+    slots_near.launches = 0
+    pack_slots.launches = pack_slots.moment_launches = 0
+    r = cli_run([], cfg_text=config_text(cfg))
+    out, rc = r["out"], r["rc"]
+    got = (slots_near.launches, pack_slots.launches,
+           pack_slots.moment_launches)
+    label = f"bh {far} order {order} {dims}-D {mode}" + (
+        " adaptiveDt=1" if adaptive else "")
+    check(rc == 0, f"{label}: cli exited {rc}")
     logs = [json.loads(l) for l in out.splitlines() if l.startswith("{")]
-    check(logs and logs[-1]["bh_overflow"] == 0, f"{far} logs {logs[-1:]}")
+    check(logs and logs[-1]["bh_overflow"] == 0, f"{label}: logs {logs[-1:]}")
     want = (10, 10, 0) if (far, order) == ("direct", 1) else (10, 0, 10)
-    check(got == want, f"bh {far} order {order} {dims}-D {mode}: B3, B4, B5 "
-          f"launched {got} times in 10 steps, expected {want}")
-    print(f"bhFar={far} bhOrder={order} {dims}-D {mode} N=65536: 10 steps, "
-          f"B3 {got[0]}, B4 {got[1]}, B5 {got[2]} launches, "
-          f"{logs[-1]['alive']} alive")
+    check(got == want, f"{label}: B3, B4, B5 launched {got} times in 10 "
+          f"steps, expected {want}")
+    extra = ""
+    if adaptive:
+        lo, hi = PhysicsParams.from_config(cfg).dt_bounds
+        dts = [r["dt_mean"] for r in logs]
+        check(all(lo * (1 - 1e-5) <= d <= hi * (1 + 1e-5) for d in dts),
+              f"{label}: dt_mean {dts} outside [{lo}, {hi}]")
+        extra = f", dt_mean {dts} within [{lo:.6g}, {hi:.6g}]"
+    print(f"{label} N=65536: 10 steps, B3 {got[0]}, B4 {got[1]}, B5 "
+          f"{got[2]} launches, bh_overflow 0, {logs[-1]['alive']} alive"
+          f"{extra}")
     return got
 
 
@@ -1786,14 +2123,22 @@ def main() -> int:
 
     max_abs_err = phase_kernel_vs_plain(dev, (random_state(300, 300), scene))
     phase_golden(dev, cfg)
-    launches = phase_main_path()
+    phase_golden_graph(dev)
+    launches, _, _ = phase_main_path()
+    phase_full_default_run()
     ms, b1_dev_ms, plain_ms, b1_bound_ = phase_timing(dev, scene, cfg)
+    phase_graph_profile(dev, cfg, f"default scene N={cfg.particle_count}")
+    phase_profile_flag()
     bwd_max_abs_err = phase_bwd_vs_plain(dev, (random_state(300, 300),
                                                 scene))
     default_state = init_scene(cfg, device=dev)
     bwd_launches = phase_grad_path(default_state)
     phase_shooting(dev)
     phase_main_path(steps=20, integrator="leapfrog")
+    phase_main_path(steps=20, integrator="yoshida4")
+    phase_modes_graph(dev)
+    phase_adaptive(2)
+    phase_energy(dev)
     bwd_ms, b2_dev_ms, bwd_plain_ms, b2_bound_ = phase_bwd_timing(dev, scene)
     phase_grad_over_forward(default_state)
     bh_cfg = million_config()
@@ -1803,6 +2148,7 @@ def main() -> int:
     phase_bh_vs_exact(dev)
     b3_launches, b5_launches = phase_bh_main_path(bh_cfg)
     _, b4_launches, _ = phase_bh_direct()
+    phase_bh_direct(far="fmm", order=2, adaptive=True)
     bh_times = phase_bh_timing(dev, arrays_1m, bh_cfg)
 
     cfg3, scene3d = default_scene_3d()
@@ -1812,10 +2158,12 @@ def main() -> int:
     phase_planar_3d(dev, scene)
     b2_3d_err = phase_bwd_vs_plain(dev, (random_state_3d(300, 300), scene3d),
                                    dims=3)
-    launches_3d = phase_main_path(dims=3)
+    launches_3d, _, _ = phase_main_path(dims=3)
+    phase_adaptive(3)
     bwd_launches_3d = phase_grad_path(init_scene(cfg3, device=dev),
                                       runs=(("euler", 4, 1),))
     times_3d = phase_timing_3d(dev, scene, scene3d, cfg3)
+    phase_graph_profile(dev, cfg3, f"3-D default scene N={len(scene3d[0])}")
 
     bh3_cfg = million_config(dimensions=3)
     arrays3_1m = scene_arrays_of(bh3_cfg)

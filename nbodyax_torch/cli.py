@@ -1,13 +1,15 @@
 """Command-line entry point.
 
 ``python -m nbodyax_torch.cli [--config nbodyConfig.txt] [--set key=value ...]
-[--device cuda|cpu]``
+[--device cuda|cpu] [--profile DIR]``
 
-The arguments of ``nbodyax.cli`` (less ``--profile``, ``--debug-nans`` and
-``--resume``), plus ``--device``, which defaults to ``cuda``: asking for
-CUDA without a card is an error, never a quiet switch to the CPU. With no
-``nbodyConfig.txt`` in the working directory the built-in default scene runs.
-Prints the settings and the reference's final ``Time taken:`` line.
+The arguments of ``nbodyax.cli`` (less ``--debug-nans`` and ``--resume``),
+plus ``--device``, which defaults to ``cuda``: asking for CUDA without a
+card is an error, never a quiet switch to the CPU. ``--profile DIR``
+writes a ``torch.profiler`` trace of the step loop to ``DIR/trace.json``.
+With no ``nbodyConfig.txt`` in the working directory the built-in default
+scene runs. Prints the settings and the reference's final ``Time taken:``
+line.
 """
 
 from __future__ import annotations
@@ -34,6 +36,9 @@ def main(argv=None) -> int:
     ap.add_argument("--no-images", action="store_true",
                     help="skip frame rendering")
     ap.add_argument("--quiet", action="store_true")
+    ap.add_argument("--profile", default=None, metavar="DIR",
+                    help="write a torch.profiler trace of the step loop "
+                         "to DIR/trace.json")
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default cuda)")
     args = ap.parse_args(argv)
@@ -66,7 +71,8 @@ def main(argv=None) -> int:
     if args.no_images:
         cfg.save_images = False
 
-    run_simulation(cfg, device=device, quiet=args.quiet)
+    run_simulation(cfg, device=device, quiet=args.quiet,
+                   profile_dir=args.profile)
     return 0
 
 

@@ -1,39 +1,63 @@
-"""Simulation driver: scene, step loop, frames, logs, ``Time taken``.
+"""Simulation driver: scene, windowed step loop, frames, logs, ``Time taken``.
 
 Counterpart of ``nbodyax/driver.py`` for what the port runs so far. The
-state stays on one device; each step is one call of the step function in a
-plain Python loop (PyTorch queues the kernels asynchronously, so the loop
-does not wait on the device); a frame renders on the device every k-th step
-and a background thread writes it; the meter and the JSONL log run at
-``logEvery``.
+state stays on one device. The host touch-points (log and energy points,
+the end of the run, and from a frame-misaligned start the next frame
+boundary) cut the run into windows (``_Schedule``, nbodyax's
+``next_window``), and each window runs as one unit:
+
+- **CUDA, exact path** (``_GraphWindows``): a window is one replay of a
+  captured ``torch.cuda.CUDAGraph``. The recurring window size (the stride)
+  has its own graph, which also renders the window's frames into a static
+  uint8 buffer and computes the conservation vector; a window of any other
+  size replays a one-step graph k times and renders its frames between
+  replays. Every graph ends by copying its final state into the static
+  buffers it starts from, so replays chain with no Python between them.
+  A capture or replay that fails raises: there is no fallback.
+- **CPU, ``forceModel=bh`` and the private ``_eager`` switch**
+  (``_EagerWindows``): the step runs k times from Python, and a frame
+  renders after each due step. The bh step reads counts back to the host
+  (``physics/barneshut.py``), so it cannot be captured; its eager loop is
+  the counterpart of nbodyax's ``_host_loop`` until ROADMAP A item 5 takes
+  those reads out.
+
+A window's conservation vector is fetched once, at its end: the fetch is
+the window's fence and the log line's payload. ``StepMeter`` times each
+window on the device's clock, and a log line's ``wall_ms`` is that
+window's time a step. ``adaptiveDt`` adds ``dt_mean`` (the mean dt since
+the last log line) and ``energyEvery`` the O(N^2) ``potential_energy`` and
+``total_energy`` at its cadence, with nbodyax's names.
 
 ``forceModel=bh``: ``resolve_bh_config`` resolves the auto knobs against
 the starting state (``pick_levels``), each log point reads ``bh_health``
 (logged as ``bh_overflow`` and ``bh_giant_excess``, with the pair rate
 labelled ``equivalent_pairs_per_sec``), and ``bhAdapt`` retunes the knobs
-between windows with nbodyax's ladder. A window ends at a log point, or
-after ``DRIFT_WINDOW_STEPS`` steps while the run is merging fast. Torch has
-nothing to recompile, so an adapt only builds a new accum_fn; nbodyax's
-wall-clock window clips and checkpoint knob metadata (its TPU-relay
-workarounds, ROADMAP A8) have no counterpart.
+between windows with nbodyax's ladder. While the run merges fast a probe
+also runs ``DRIFT_WINDOW_STEPS`` steps after the last log point or probe.
+Torch has nothing to recompile, so an adapt only builds a new accum_fn;
+nbodyax's wall-clock window clips and checkpoint knob metadata (its
+TPU-relay workarounds, ROADMAP A8) have no counterpart.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
+import os
 import time
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
 from nbodyax_torch.backends import build_accum_fn
 from nbodyax_torch.config import SimConfig
 from nbodyax_torch.metrics import (JsonlLogger, StepMeter, conservation_vec,
-                                   scalars_from_vec)
+                                   potential_energy, scalars_from_vec)
 from nbodyax_torch.physics.step import PhysicsParams, make_step
 from nbodyax_torch.render import FrameWriter, render_state
 from nbodyax_torch.scenes import init_scene
-from nbodyax_torch.state import SimState
+from nbodyax_torch.state import SimState, make_state
 
 __all__ = ["run_simulation", "RunResult", "resolve_device",
            "resolve_bh_config"]
@@ -50,6 +74,7 @@ class RunResult:
     pairs_per_sec: float
     wall_seconds: float
     frames_written: int
+    windows: int = 0        # windows run (scheduler diagnostics)
 
 
 def _check_supported(cfg: SimConfig) -> None:
@@ -58,7 +83,6 @@ def _check_supported(cfg: SimConfig) -> None:
         (cfg.checkpoint_every > 0, "checkpointEvery > 0", "A8"),
         (bool(cfg.resume_from), "resumeFrom", "A8"),
         (cfg.compact_every > 0, "compactEvery > 0", "A8"),
-        (cfg.energy_every > 0, "energyEvery > 0", "A8"),
         (cfg.shards > 1, "shards > 1", "A11"),
     ]
     for unsupported, what, item in todo:
@@ -202,13 +226,197 @@ class _BhProbe:
         return h, cfg
 
 
-def run_simulation(cfg: SimConfig, *, device="cuda",
-                   quiet: bool = False) -> RunResult:
-    """Run ``cfg`` to ``totalIterations`` on ``device``."""
+class _Schedule:
+    """nbodyax's window scheduler (nbodyax/driver.py:331-357): a window runs
+    from step i to the nearest due event: a multiple of a cadence
+    (``logEvery``, ``energyEvery``), the end of the run, or, from a
+    frame-misaligned start, the next frame boundary. With no cadence the
+    base is 16 frame cadences, or 64 steps. ``stride``, the gcd of the
+    cadences (and of the frame cadence when it does not divide it), is the
+    window size that recurs."""
+
+    def __init__(self, cfg: SimConfig, k_img: int):
+        self.total = cfg.total_iterations
+        self.k_img = k_img
+        self.cadences = [c for c in (cfg.log_every, cfg.energy_every) if c]
+        base = (math.gcd(*self.cadences) if self.cadences
+                else (16 * k_img if k_img else 64))
+        if k_img and base % k_img:
+            base = math.gcd(base, k_img)
+        self.stride = base
+
+    def next_window(self, i: int) -> int:
+        k = self.total - i
+        for c in self.cadences:
+            k = min(k, c - i % c)
+        if not self.cadences:
+            k = min(k, self.stride - i % self.stride)
+        if self.k_img and i % self.k_img:
+            k = min(k, self.k_img - i % self.k_img)
+        return k
+
+
+def _launch_counters():
+    """(owner, attribute) of every kernel wrapper's launch count."""
+    from nbodyax_torch.physics.kernels import tile_accumulators_raw
+    from nbodyax_torch.physics.kernels_bwd import raw_backward
+    from nbodyax_torch.physics.near_kernel import slots_near
+    from nbodyax_torch.physics.slotpack_kernel import pack_slots
+    return ((tile_accumulators_raw, "launches"), (raw_backward, "launches"),
+            (slots_near, "launches"), (pack_slots, "launches"),
+            (pack_slots, "moment_launches"))
+
+
+def _read_counters() -> list:
+    return [getattr(o, a) for o, a in _launch_counters()]
+
+
+def _write_counters(values) -> None:
+    for (o, a), v in zip(_launch_counters(), values):
+        setattr(o, a, v)
+
+
+class _EagerWindows:
+    """A window is k calls of the step from Python; a frame renders after
+    each step j with j % k_img == 0 (frame iteration_j holds the state
+    after 0-based step j)."""
+
+    def __init__(self, step, state: SimState, cfg: SimConfig, k_img: int):
+        self.step, self.state, self.cfg, self.k_img = step, state, cfg, k_img
+
+    def advance(self, k: int, frames: bool):
+        """Run k steps; returns (conservation vec, [(iteration, frame,
+        ready event or None)])."""
+        out = []
+        for _ in range(k):
+            it = self.state.step
+            self.state = self.step(self.state)
+            if frames and it % self.k_img == 0:
+                out.append((it, render_state(self.state, self.cfg), None))
+        return conservation_vec(self.state), out
+
+
+class _GraphWindows:
+    """Windows as replays of CUDA graphs over static state buffers.
+
+    ``buf`` holds the state every graph starts from and ends by writing.
+    A graph is captured the first time its window size is needed: the
+    stride with its frames (``frames``: the window starts at a frame
+    boundary) or without, and a one-step graph for every other size. The
+    kernel wrappers' launch counts only move while Python runs, that is
+    during the capture: each graph keeps the counts its capture added,
+    and every replay adds them again. Warm-up and capture themselves
+    count nothing.
+    """
+
+    def __init__(self, step, state: SimState, cfg: SimConfig, k_img: int,
+                 stride: int, writer: Optional[FrameWriter]):
+        self.step, self.cfg, self.k_img = step, cfg, k_img
+        self.stride, self.writer = stride, writer
+        self.buf = SimState(
+            *(t.clone(memory_format=torch.contiguous_format)
+              for t in state[:4]), state.step, state.sim_time.clone())
+        self.graphs = {}
+
+    @property
+    def state(self) -> SimState:
+        return self.buf
+
+    def _capture(self, k: int, frames: bool):
+        """Capture k steps (rendering every k_img-th into a static frame
+        buffer when ``frames``), the conservation vector into a static
+        output, and the copy of the final state into ``buf``."""
+        if self.writer is not None:
+            self.writer.drain()   # its thread copies frames off the card
+        counts = _read_counters()
+        b, cfg = self.buf, self.cfg
+        # warm-up on a copy, on a side stream: the kernel library's first
+        # load, the cached launch shapes and the allocator's blocks come
+        # from here, never from inside the capture
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            tmp = self.step(SimState(*(t.clone() for t in b[:4]), b.step,
+                                     b.sim_time.clone()))
+            vec_probe = conservation_vec(tmp)
+            if frames:
+                render_state(tmp, cfg)
+        torch.cuda.current_stream().wait_stream(side)
+        vec = torch.empty_like(vec_probe)
+        fbuf = (torch.empty((-(-k // self.k_img), cfg.img_height,
+                             cfg.img_width), dtype=torch.uint8,
+                            device=b.pos.device) if frames else None)
+        graph = torch.cuda.CUDAGraph()
+        before = _read_counters()
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            s = b
+            for j in range(k):
+                s = self.step(s)
+                if frames and j % self.k_img == 0:
+                    fbuf[j // self.k_img].copy_(render_state(s, cfg))
+            vec.copy_(conservation_vec(s))
+            for dst, src in zip(b[:4], s[:4]):
+                dst.copy_(src)
+            b.sim_time.copy_(s.sim_time)
+        delta = [a - c for a, c in zip(_read_counters(), before)]
+        _write_counters(counts)
+        return graph, vec, fbuf, delta
+
+    def _replay(self, k: int, frames: bool):
+        key = (k, frames)
+        if key not in self.graphs:
+            self.graphs[key] = self._capture(k, frames)
+        graph, vec, fbuf, delta = self.graphs[key]
+        graph.replay()
+        _write_counters([a + d for a, d in zip(_read_counters(), delta)])
+        return vec, fbuf
+
+    def advance(self, k: int, frames: bool):
+        """Run k steps; returns (conservation vec, [(iteration, frame,
+        ready event or None)]). The vec is a static output: fetch it
+        before the next window."""
+        i0 = self.buf.step
+        out = []
+        if k == self.stride:
+            frames = frames and i0 % self.k_img == 0
+            vec, fbuf = self._replay(k, frames)
+            if frames:
+                # the next replay overwrites fbuf: copy it out now, into
+                # pinned memory the writer reads once the event has passed
+                host = torch.empty(fbuf.shape, dtype=torch.uint8,
+                                   pin_memory=True)
+                host.copy_(fbuf, non_blocking=True)
+                ready = torch.cuda.Event()
+                ready.record()
+                out = [(i0 + m * self.k_img, host[m], ready)
+                       for m in range(host.shape[0])]
+        else:
+            for j in range(k):
+                vec, _ = self._replay(1, False)
+                if frames and (i0 + j) % self.k_img == 0:
+                    out.append((i0 + j, render_state(self.buf, self.cfg),
+                                None))
+        self.buf = self.buf._replace(step=i0 + k)
+        return vec, out
+
+
+def run_simulation(cfg: SimConfig, *, device="cuda", quiet: bool = False,
+                   state: Optional[SimState] = None,
+                   profile_dir: Optional[str] = None,
+                   _eager: bool = False) -> RunResult:
+    """Run ``cfg`` to ``totalIterations`` on ``device``, from the config's
+    scene or from ``state`` (its ``step`` is where the run starts).
+    ``profile_dir``: a ``torch.profiler`` trace of the step loop is written
+    there (``trace.json``). ``_eager`` runs the exact path's windows
+    eagerly on a card too, for A/B checks against the graphs."""
     t_start = time.perf_counter()
     _check_supported(cfg)
     dev = resolve_device(device)
-    state = init_scene(cfg, device=dev)
+    if state is None:
+        state = init_scene(cfg, device=dev)
+    else:
+        state = make_state(*state[:4], step=int(state.step),
+                           sim_time=float(state.sim_time), device=dev)
     cfg = resolve_bh_config(cfg, state, quiet=quiet)
     bh = cfg.force_model == "bh"
 
@@ -216,59 +424,90 @@ def run_simulation(cfg: SimConfig, *, device="cuda",
         p = PhysicsParams.from_config(c)
         return make_step(p, accum_fn=build_accum_fn(c.backend, p, dev, c))
 
-    step = build_step(cfg)
     meter = StepMeter(state.capacity, dev)
     k_img = (cfg.save_image_every
              if cfg.save_images and cfg.save_image_every > 0 else 0)
+    sched = _Schedule(cfg, k_img)
     writer = FrameWriter(cfg.image_path) if k_img else None
     logger = JsonlLogger(cfg.log_path, echo=not quiet)
+    if dev.type == "cuda" and not bh and not _eager:
+        runner = _GraphWindows(build_step(cfg), state, cfg, k_img,
+                               sched.stride, writer)
+    else:
+        runner = _EagerWindows(build_step(cfg), state, cfg, k_img)
     # without bhAdapt the probe only reads bh_health and never drifts
     probe = _BhProbe(float((state.mass > 0).sum())) if bh else None
     pairs_key = "equivalent_pairs_per_sec" if bh else "pairs_per_sec"
-    frames = 0
+    frames = windows = since_probe = 0
+    prev_sim_time, prev_log_iter = float(state.sim_time), state.step
+    prof = None
+    if profile_dir:
+        from torch.profiler import ProfilerActivity, profile
+        prof = profile(activities=[ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if dev.type == "cuda" else []))
+        prof.start()
     try:
-        window = since_boundary = 0
-        meter.start()
-        for it in range(state.step, cfg.total_iterations):
-            state = step(state)
-            window += 1
-            since_boundary += 1
-            if k_img and it % k_img == 0:
-                # frame iteration_j holds the state after 0-based step j
-                writer.submit(it, render_state(state, cfg))
-                frames += 1
-            done = it + 1
-            log_due = cfg.log_every and done % cfg.log_every == 0
-            if (probe is not None and probe.drift_mode and not log_due
-                    and done < cfg.total_iterations
-                    and since_boundary >= DRIFT_WINDOW_STEPS):
-                # a drift window's end: probe while the run merges fast
-                since_boundary = 0
-                alive_now = float((state.mass > 0).sum())
-                _, new_cfg = probe.probe(cfg, state, alive_now, done, quiet)
-                if new_cfg is not cfg:
-                    cfg, step = new_cfg, build_step(new_cfg)
-            if not (log_due or done == cfg.total_iterations):
-                continue
-            since_boundary = 0
-            win_wall = meter.stop(window)
-            if log_due:
-                scal = scalars_from_vec(conservation_vec(state).cpu(),
-                                        cfg.dimensions)
-                if probe is not None:
-                    h, new_cfg = probe.probe(cfg, state, scal["alive"], done,
-                                             quiet)
-                    if new_cfg is not cfg:
-                        cfg, step = new_cfg, build_step(new_cfg)
-                    scal["bh_overflow"] = int(h[0] + h[1])
-                    scal["bh_giant_excess"] = int(h[6])
-                logger.log(step=done, wall_ms=win_wall / window * 1e3,
-                           steps_per_sec=meter.steps_per_sec,
-                           force_model=cfg.force_model,
-                           **{pairs_key: meter.pairs_per_sec}, **scal)
-            window = 0
+        iteration = state.step
+        while iteration < cfg.total_iterations:
+            k = sched.next_window(iteration)
+            if probe is not None and probe.drift_mode:
+                k = min(k, DRIFT_WINDOW_STEPS - since_probe)
+            if k_img and iteration % k_img == 0 and k >= k_img:
+                k -= k % k_img   # frame windows stay frame-aligned
+            windows += 1
             meter.start()
+            vec, imgs = runner.advance(k, writer is not None)
+            win_wall = meter.stop(k)
+            v = vec.cpu()
+            for it, img, ready in imgs:
+                writer.submit(it, img, ready)
+            frames += len(imgs)
+            iteration += k
+            state = runner.state
+            log_due = cfg.log_every and iteration % cfg.log_every == 0
+            if probe is not None:
+                since_probe += k
+                if (probe.drift_mode and not log_due
+                        and iteration < cfg.total_iterations
+                        and since_probe >= DRIFT_WINDOW_STEPS):
+                    # a drift window's end: probe while the run merges fast
+                    since_probe = 0
+                    _, new_cfg = probe.probe(cfg, state, float(v[0]),
+                                             iteration, quiet)
+                    if new_cfg is not cfg:
+                        cfg, runner.step = new_cfg, build_step(new_cfg)
+                if log_due or iteration == cfg.total_iterations:
+                    since_probe = 0
+            if not log_due:
+                continue
+            scal = scalars_from_vec(v, cfg.dimensions)
+            if cfg.adaptive_dt:
+                # the mean dt since the last log line: sim_time telescopes
+                # the per-step dts the windows do not report
+                scal["dt_mean"] = ((scal["sim_time"] - prev_sim_time)
+                                   / max(iteration - prev_log_iter, 1))
+            prev_sim_time, prev_log_iter = scal["sim_time"], iteration
+            if probe is not None:
+                h, new_cfg = probe.probe(cfg, state, scal["alive"],
+                                         iteration, quiet)
+                if new_cfg is not cfg:
+                    cfg, runner.step = new_cfg, build_step(new_cfg)
+                scal["bh_overflow"] = int(h[0] + h[1])
+                scal["bh_giant_excess"] = int(h[6])
+            if cfg.energy_every and iteration % cfg.energy_every == 0:
+                # O(N^2), as dear as a force pass: at its own cadence
+                pe = float(potential_energy(state, eps=cfg.softening))
+                scal["potential_energy"] = pe
+                scal["total_energy"] = pe + scal["kinetic_energy"]
+            logger.log(step=iteration, wall_ms=win_wall / k * 1e3,
+                       steps_per_sec=meter.steps_per_sec,
+                       force_model=cfg.force_model,
+                       **{pairs_key: meter.pairs_per_sec}, **scal)
     finally:
+        if prof is not None:
+            prof.stop()
+            os.makedirs(profile_dir, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
         if writer is not None:
             writer.close()
         logger.close()
@@ -280,4 +519,4 @@ def run_simulation(cfg: SimConfig, *, device="cuda",
         print(f"Time taken: {wall:.4f}")  # the reference's final line
     return RunResult(state=state, steps_per_sec=meter.steps_per_sec,
                      pairs_per_sec=meter.pairs_per_sec, wall_seconds=wall,
-                     frames_written=frames)
+                     frames_written=frames, windows=windows)

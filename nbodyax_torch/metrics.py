@@ -16,8 +16,10 @@ import torch
 
 from nbodyax_torch.state import SimState
 
-__all__ = ["conservation_vec", "scalars_from_vec", "StepMeter",
-           "JsonlLogger"]
+__all__ = ["conservation_vec", "scalars_from_vec", "potential_energy",
+           "StepMeter", "JsonlLogger"]
+
+GRAV_CONSTANT = float(np.float32(6.67408e-11))
 
 
 def conservation_vec(state: SimState) -> torch.Tensor:
@@ -42,6 +44,32 @@ def scalars_from_vec(v, dim: int) -> dict:
         out["momentum_z"] = v[5]
     out["sim_time"] = v[-1]
     return out
+
+
+def potential_energy(state: SimState, eps: float = 0.0) -> torch.Tensor:
+    """The O(N^2) pair potential -G * sum_{i<j} m_i m_j / sqrt(d^2 + eps^2)
+    of live pairs, a 0-d f32 tensor on the state's device: the counterpart
+    of ``nbodyax.metrics.potential_energy`` (plain array ops there too),
+    in any dimension. Rows go in chunks of (1 << 22) // N, at least 8, so a
+    chunk's pair temporaries stay near 2^22 elements; each chunk's sum is
+    added in chunk order. No host read."""
+    pos, mass = state.pos, state.mass
+    n = pos.shape[0]
+    chunk = max(8, min(n, (1 << 22) // max(n, 1)))
+    eps32 = np.float32(eps)
+    eps2 = float(eps32 * eps32)
+    idx = torch.arange(n, device=pos.device)
+    parts = []
+    for s in range(0, n, chunk):
+        pi, mi, ii = pos[s:s + chunk], mass[s:s + chunk], idx[s:s + chunk]
+        dp = pos[None, :, :] - pi[:, None, :]
+        d2 = (dp * dp).sum(-1) + eps2
+        valid = ((mi[:, None] > 0) & (mass[None, :] > 0)
+                 & (ii[:, None] != idx[None, :]) & (d2 > 0))
+        inv = torch.where(valid, torch.rsqrt(torch.where(valid, d2, 1.0)),
+                          0.0)
+        parts.append((mi[:, None] * mass[None, :] * inv).sum())
+    return -0.5 * GRAV_CONSTANT * torch.stack(parts).sum()
 
 
 class StepMeter:

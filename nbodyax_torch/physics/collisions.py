@@ -10,7 +10,8 @@ accumulators into committed state updates.
 - ``momentum``: losers donate to the strongest overlapping winner; merge
   trees are resolved to their roots by pointer doubling, and each root takes
   the tree's mass, momentum-weighted velocity, centre of mass and an
-  area-conserving radius.
+  area-conserving radius. On a card the tree sums add in a fixed order,
+  so a run repeats bit for bit.
 - ``elastic``: no merging; the summed pair impulse, scaled by (1+e)/2.
 - ``none``: nothing.
 """
@@ -62,6 +63,12 @@ def resolve_collisions(pos, vel, mass, radius, acc: PairAccumulators, *,
         root = torch.where(alive, _pointer_double(acc.parent, iters), idx)
 
         def tree_sum(x):
+            if x.is_cuda:
+                # index_add_ adds by CUDA atomics, in an order that changes
+                # from run to run; index_put_ with accumulate sorts the ids
+                # and adds each root's terms in a fixed order
+                return torch.zeros_like(x).index_put_((root,), x,
+                                                      accumulate=True)
             return torch.zeros_like(x).index_add_(0, root, x)
 
         msum = tree_sum(mass)

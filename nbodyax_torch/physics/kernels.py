@@ -23,9 +23,12 @@ raw output; ``decode_raw`` zeroes them.
 ``tile_accumulators_raw`` launches the kernel for CUDA tensors and runs
 ``tile_accumulators_raw_reference`` for CPU tensors. ``launches`` counts
 kernel calls, one a forward call, so a run can show it went through the
-kernel. The kernel splits the partners across blocks when the rows alone
-would not fill the card (``choose_splits``); a call is then two CUDA
-launches, the pass and the combine of its partials.
+kernel. A CUDA graph replays launches without calling the wrapper: the
+driver's graph windows add the count each capture made at every replay,
+and count nothing for warm-up or capture (``driver._GraphWindows``), as
+for the other kernels' counts. The kernel splits the partners across
+blocks when the rows alone would not fill the card (``choose_splits``); a
+call is then two CUDA launches, the pass and the combine of its partials.
 
 Reverse mode: ``tile_accumulators_raw`` is a ``torch.autograd.Function``
 (the counterpart of the ``jax.custom_vjp`` of ``nbodyax``'s kernel). Its

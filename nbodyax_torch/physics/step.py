@@ -19,7 +19,14 @@ interval is ``fieldDepth`` (``fieldWidth`` when that is 0). ``integrator=leapfro
 pass, and ``yoshida4`` the 4th-order composition of three leapfrog substeps
 (three force passes beyond the first); both resolve collisions once, at the
 step-start pass, and run the boundary and the dead-slot freeze once, at the
-end. Adaptive dt is not ported yet.
+end.
+
+``adaptiveDt``: each step integrates with one lockstep dt from ``step_dt``,
+a 0-d f32 tensor on the state's device computed from the post-collision
+state and the step-start force, so the step reads nothing back to the host
+and a CUDA graph can capture it. ``sim_time`` advances by the dt used. At a
+fixed dt the tails take the configured dt as a Python float, the same f32
+value.
 """
 
 from __future__ import annotations
@@ -35,8 +42,9 @@ from nbodyax_torch.physics.collisions import resolve_collisions
 from nbodyax_torch.physics.pairwise import PairAccumulators, pair_accumulators
 from nbodyax_torch.state import SimState
 
-__all__ = ["PhysicsParams", "make_step", "finish_euler", "half_kick_drift",
-           "finish_leapfrog", "yoshida4_tail", "GRAV_CONSTANT"]
+__all__ = ["PhysicsParams", "make_step", "step_dt", "finish_euler",
+           "half_kick_drift", "finish_leapfrog", "yoshida4_tail",
+           "GRAV_CONSTANT"]
 
 GRAV_CONSTANT = float(np.float32(6.67408e-11))
 
@@ -57,7 +65,12 @@ class PhysicsParams:
     boundary_mode: str = "reference"
     wall_restitution: float = 1.0
     integrator: str = "euler"
+    # adaptive lockstep dt: clip(min over alive bodies of
+    # min(eta*sqrt(r/|a|), eta*r/|v|), dt_min, dt_max)
     adaptive_dt: bool = False
+    dt_eta: float = 0.25
+    dt_min: float = 0.0                   # 0 -> dt_max / 1024
+    dt_max: float = 0.0                   # 0 -> the configured fixed dt
 
     @classmethod
     def from_config(cls, cfg) -> "PhysicsParams":
@@ -72,10 +85,45 @@ class PhysicsParams:
                    boundary_mode=cfg.boundary_mode,
                    wall_restitution=float(cfg.wall_restitution),
                    integrator=cfg.integrator,
-                   adaptive_dt=bool(cfg.adaptive_dt))
+                   adaptive_dt=bool(cfg.adaptive_dt),
+                   dt_eta=float(cfg.dt_eta), dt_min=float(cfg.dt_min),
+                   dt_max=float(cfg.dt_max))
+
+    @property
+    def dt_bounds(self):
+        """Resolved (dt_min, dt_max) for the adaptive clip."""
+        hi = self.dt_max or self.dt
+        return (self.dt_min or hi / 1024.0, hi)
 
 
 AccumFn = Callable[..., PairAccumulators]
+
+
+def _norm(x: torch.Tensor) -> torch.Tensor:
+    """|x| over the last axis, the squares summed left to right."""
+    s = x[..., 0] * x[..., 0]
+    for k in range(1, x.shape[-1]):
+        s = s + x[..., k] * x[..., k]
+    return torch.sqrt(s)
+
+
+def step_dt(vel, mass, radius, force, p: PhysicsParams):
+    """The dt a step integrates with: the configured dt (a Python float),
+    or under ``adaptive_dt`` one global value from the post-collision
+    arrays and the step-start force, a 0-d f32 tensor on their device:
+    clip(min over alive bodies of min(eta*sqrt(r/|a|), eta*r/|v|), dt_min,
+    dt_max). An all-dead state clips to dt_max. No host read."""
+    if not p.adaptive_dt:
+        return p.dt
+    amag = _norm(force * GRAV_CONSTANT)
+    vmag = _norm(vel)
+    tiny = 1e-30
+    dt_a = p.dt_eta * torch.sqrt(radius / torch.clamp(amag, min=tiny))
+    dt_v = p.dt_eta * radius / torch.clamp(vmag, min=tiny)
+    dt_i = torch.where(mass > 0, torch.minimum(dt_a, dt_v),
+                       torch.full_like(dt_a, float("inf")))
+    lo, hi = p.dt_bounds
+    return torch.clamp(dt_i.min(), lo, hi)
 
 
 def _limit(radius, p: PhysicsParams, dim: int) -> torch.Tensor:
@@ -113,11 +161,12 @@ def _freeze_dead(pos2, new_pos, new_vel, mass2):
 
 
 def finish_euler(pos2, vel2, mass2, radius2, pre_radius, force,
-                 p: PhysicsParams):
+                 p: PhysicsParams, dt=None):
     """Post-collision tail of a step: boundary -> kick -> drift -> dead-slot
     freeze. Takes the post-collision arrays, the pre-merge radius and the
-    force sum before G; returns (pos, vel, mass, radius)."""
-    dt = p.dt
+    force sum before G; returns (pos, vel, mass, radius). ``dt`` overrides
+    the configured value (``step_dt``)."""
+    dt = p.dt if dt is None else dt
     accel = force * GRAV_CONSTANT
     if p.boundary_mode == "reference":
         vel2 = _boundary_flip(pos2, vel2, pre_radius, accel * dt, p)
@@ -131,37 +180,40 @@ def finish_euler(pos2, vel2, mass2, radius2, pre_radius, force,
     return new_pos, new_vel, mass2, radius2
 
 
-def half_kick_drift(pos2, vel2, force, p: PhysicsParams):
+def half_kick_drift(pos2, vel2, force, p: PhysicsParams, dt=None):
     """Leapfrog first half (post-collision): half kick and full drift.
-    Returns (v_half, new_pos)."""
-    v_half = vel2 + force * GRAV_CONSTANT * (p.dt / 2)
-    return v_half, pos2 + v_half * p.dt
+    Returns (v_half, new_pos). ``dt`` (``step_dt``) holds for the whole
+    kick-drift-kick step."""
+    dt = p.dt if dt is None else dt
+    v_half = vel2 + force * GRAV_CONSTANT * (dt / 2)
+    return v_half, pos2 + v_half * dt
 
 
 def _finish_kicked(pos2, new_pos, new_vel, mass2, radius2, accel,
-                   p: PhysicsParams):
+                   p: PhysicsParams, dt):
     """Boundary and dead-slot freeze after the last kick of a leapfrog or
     yoshida4 step. ``reference`` flips on an accel*dt probe and never
     clamps (quirk Q6); ``clamp`` probes with the real displacement and
     clamps."""
     if p.boundary_mode == "reference":
-        new_vel = _boundary_flip(new_pos, new_vel, radius2, accel * p.dt, p)
+        new_vel = _boundary_flip(new_pos, new_vel, radius2, accel * dt, p)
     elif p.boundary_mode == "clamp":
-        new_vel = _boundary_flip(new_pos, new_vel, radius2, new_vel * p.dt,
-                                 p)
+        new_vel = _boundary_flip(new_pos, new_vel, radius2, new_vel * dt, p)
         new_pos = _clamp_positions(new_pos, radius2, p)
     new_pos, new_vel = _freeze_dead(pos2, new_pos, new_vel, mass2)
     return new_pos, new_vel, mass2, radius2
 
 
 def finish_leapfrog(pos2, new_pos, v_half, mass2, radius2, force2,
-                    p: PhysicsParams):
+                    p: PhysicsParams, dt=None):
     """Leapfrog second half: the final half kick from the second force
     pass, then boundary and dead-slot freeze. Returns (pos, vel, mass,
-    radius)."""
+    radius). ``dt`` must be the one the first half used."""
+    dt = p.dt if dt is None else dt
     accel2 = force2 * GRAV_CONSTANT
-    new_vel = v_half + accel2 * (p.dt / 2)
-    return _finish_kicked(pos2, new_pos, new_vel, mass2, radius2, accel2, p)
+    new_vel = v_half + accel2 * (dt / 2)
+    return _finish_kicked(pos2, new_pos, new_vel, mass2, radius2, accel2, p,
+                          dt)
 
 
 # Yoshida (1990) 4th-order symplectic composition: three leapfrog substeps
@@ -176,16 +228,22 @@ _YOSH_DRIFT = (_YOSH_W1, _YOSH_W0, _YOSH_W1)
 
 
 def yoshida4_tail(pos2, vel2, mass2, radius2, force1, accum_fn,
-                  p: PhysicsParams):
+                  p: PhysicsParams, dt=None):
     """4th-order symplectic tail (post-collision): the three scaled
     leapfrog substeps merged into a kick-drift chain with kick coefficients
     (w1/2, (w0+w1)/2, (w0+w1)/2, w1/2) and drift coefficients (w1, w0, w1).
     ``force1`` is the step-start pass's force; ``accum_fn`` supplies the
     three further passes. Boundary and dead-slot freeze run once, at the
-    end. Returns (pos, vel, mass, radius)."""
-    dt = np.float32(p.dt)
-    kick = [float(np.float32(c) * dt) for c in _YOSH_KICK]
-    drift = [float(np.float32(d) * dt) for d in _YOSH_DRIFT]
+    end. ``dt`` overrides the configured value (``step_dt``): each
+    coefficient times dt is rounded to f32 either way. Returns (pos, vel,
+    mass, radius)."""
+    dt = p.dt if dt is None else dt
+    if isinstance(dt, torch.Tensor):
+        kick = [float(np.float32(c)) * dt for c in _YOSH_KICK]
+        drift = [float(np.float32(d)) * dt for d in _YOSH_DRIFT]
+    else:
+        kick = [float(np.float32(c) * np.float32(dt)) for c in _YOSH_KICK]
+        drift = [float(np.float32(d) * np.float32(dt)) for d in _YOSH_DRIFT]
     v = vel2 + force1 * GRAV_CONSTANT * kick[0]
     x = pos2 + v * drift[0]
     for i in (1, 2):
@@ -194,7 +252,7 @@ def yoshida4_tail(pos2, vel2, mass2, radius2, force1, accum_fn,
         x = x + v * drift[i]
     a4 = accum_fn(x, v, mass2, radius2).force * GRAV_CONSTANT
     new_vel = v + a4 * kick[3]
-    return _finish_kicked(pos2, x, new_vel, mass2, radius2, a4, p)
+    return _finish_kicked(pos2, x, new_vel, mass2, radius2, a4, p, dt)
 
 
 def make_step(p: PhysicsParams, accum_fn: Optional[AccumFn] = None,
@@ -204,9 +262,6 @@ def make_step(p: PhysicsParams, accum_fn: Optional[AccumFn] = None,
     torch oracle."""
     if p.integrator not in ("euler", "leapfrog", "yoshida4"):
         raise ValueError(f"unknown integrator {p.integrator!r}")
-    if p.adaptive_dt:
-        raise NotImplementedError(
-            "adaptiveDt is not ported yet (ROADMAP item A5)")
     if p.boundary_mode not in ("reference", "clamp", "none"):
         raise ValueError(f"unknown boundaryMode {p.boundary_mode!r}")
     if accum_fn is None:
@@ -215,33 +270,34 @@ def make_step(p: PhysicsParams, accum_fn: Optional[AccumFn] = None,
                            chunk=chunk)
 
     def collide(state: SimState):
-        """The step-start pass and the collision commit."""
+        """The step-start pass, the collision commit and the step's dt."""
         acc = accum_fn(state.pos, state.vel, state.mass, state.radius)
-        return acc, resolve_collisions(
+        post = resolve_collisions(
             state.pos, state.vel, state.mass, state.radius, acc,
             mode=p.collision_mode, restitution=p.restitution)
+        return acc, post, step_dt(post[1], post[2], post[3], acc.force, p)
 
     def euler_step(state: SimState) -> SimState:
-        acc, (pos2, vel2, mass2, radius2) = collide(state)
+        acc, (pos2, vel2, mass2, radius2), dt = collide(state)
         out = finish_euler(pos2, vel2, mass2, radius2, state.radius,
-                           acc.force, p)
-        return SimState(*out, state.step + 1, state.sim_time + p.dt)
+                           acc.force, p, dt)
+        return SimState(*out, state.step + 1, state.sim_time + dt)
 
     def leapfrog_step(state: SimState) -> SimState:
         """Kick-drift-kick; collisions resolve at the first kick."""
-        acc, (pos2, vel2, mass2, radius2) = collide(state)
-        v_half, new_pos = half_kick_drift(pos2, vel2, acc.force, p)
+        acc, (pos2, vel2, mass2, radius2), dt = collide(state)
+        v_half, new_pos = half_kick_drift(pos2, vel2, acc.force, p, dt)
         acc2 = accum_fn(new_pos, v_half, mass2, radius2)
         out = finish_leapfrog(pos2, new_pos, v_half, mass2, radius2,
-                              acc2.force, p)
-        return SimState(*out, state.step + 1, state.sim_time + p.dt)
+                              acc2.force, p, dt)
+        return SimState(*out, state.step + 1, state.sim_time + dt)
 
     def yoshida_step(state: SimState) -> SimState:
         """4th-order composition; collisions resolve at the first kick."""
-        acc, (pos2, vel2, mass2, radius2) = collide(state)
+        acc, (pos2, vel2, mass2, radius2), dt = collide(state)
         out = yoshida4_tail(pos2, vel2, mass2, radius2, acc.force, accum_fn,
-                            p)
-        return SimState(*out, state.step + 1, state.sim_time + p.dt)
+                            p, dt)
+        return SimState(*out, state.step + 1, state.sim_time + dt)
 
     return {"euler": euler_step, "leapfrog": leapfrog_step,
             "yoshida4": yoshida_step}[p.integrator]

@@ -94,7 +94,10 @@ def rasterize(pos, mass, radius, *, img_width: int, img_height: int,
                  & (py >= 0) & (py < img_height))
         flat = torch.where(paint, py * img_width + px,
                            torch.full_like(px, spare))
-        img[flat.reshape(-1).long()] = BODY
+        # index_fill_ takes the value as a kernel argument: an index
+        # assignment of a Python scalar copies it to the card first, which
+        # a CUDA graph capture refuses
+        img.index_fill_(0, flat.reshape(-1).long(), BODY)
 
     live = mass > 0
     scatter_discs(torch.arange(n, device=dev), live, patch)
@@ -154,7 +157,10 @@ class FrameWriter:
     ``submit`` queues a rendered frame (a tensor on any device); a daemon
     thread copies it to the host and writes ``{image_path}/iteration_{i}.ppm``
     (the reference's file name; the content is P5 grayscale). Rendering thus
-    overlaps the next steps. Errors surface on the next ``submit`` or on
+    overlaps the next steps. A frame already copied to host memory by a
+    non-blocking copy comes with the CUDA event that the copy recorded; the
+    thread waits for it before reading. ``drain`` waits until every queued
+    frame is written. Errors surface on the next ``submit``, ``drain`` or on
     ``close``.
     """
 
@@ -169,23 +175,33 @@ class FrameWriter:
     def _loop(self):
         while True:
             item = self._q.get()
-            if item is None:
-                return
-            iteration, img = item
             try:
+                if item is None:
+                    return
+                iteration, img, ready = item
+                if ready is not None:
+                    ready.synchronize()
                 write_pgm(os.path.join(self.image_path,
                                        f"iteration_{iteration}.ppm"),
                           img.cpu().numpy())
             except Exception as e:  # surfaced on submit() / close()
                 self._err = e
+            finally:
+                self._q.task_done()
 
-    def submit(self, iteration: int, img: torch.Tensor) -> None:
+    def _raise(self) -> None:
         if self._err is not None:
             raise FrameWriteError("frame writer failed") from self._err
-        self._q.put((iteration, img))
+
+    def submit(self, iteration: int, img: torch.Tensor, ready=None) -> None:
+        self._raise()
+        self._q.put((iteration, img, ready))
+
+    def drain(self) -> None:
+        self._q.join()
+        self._raise()
 
     def close(self) -> None:
         self._q.put(None)
         self._thread.join()
-        if self._err is not None:
-            raise FrameWriteError("frame writer failed") from self._err
+        self._raise()

@@ -1,0 +1,231 @@
+"""nbodyax_torch's window scheduler and driver loop, on the CPU.
+
+The window cases of tests/test_driver.py that need no checkpoint, run
+through the port's ``run_simulation`` (N <= 96): the log cadence, a
+misaligned start given by ``state=``, the ``windows`` count against
+``nbodyax.driver.run_simulation``'s on the same config, frames that hold
+the post-step state, multi-frame windows byte-equal to a stride-1 run, a
+run with no cadence, and the energy cadence; plus ``potential_energy``
+against nbodyax's in 2-D and 3-D and ``dt_mean`` against nbodyax's logged
+value. On the CPU every window runs the step eagerly; the card's graph
+windows are held to this eager runner in tests/test_torch_graphs.py.
+"""
+
+import json
+import os
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from nbodyax import metrics as jmetrics  # noqa: E402
+from nbodyax import state as jstate  # noqa: E402
+from nbodyax.config import SimConfig as JaxConfig  # noqa: E402
+from nbodyax.driver import run_simulation as jax_run  # noqa: E402
+from nbodyax_torch import metrics as tmetrics  # noqa: E402
+from nbodyax_torch.config import SimConfig  # noqa: E402
+from nbodyax_torch.driver import _Schedule, run_simulation  # noqa: E402
+from nbodyax_torch.physics.step import PhysicsParams, make_step  # noqa: E402
+from nbodyax_torch.render import render_state  # noqa: E402
+from nbodyax_torch.scenes import init_scene  # noqa: E402
+from nbodyax_torch.state import from_numpy, make_state  # noqa: E402
+
+
+def base(tmp_path, cls=SimConfig, **kw):
+    d = dict(particle_count=96, total_iterations=20, field_width=5000,
+             field_height=5000, save_images=False,
+             log_path=str(tmp_path / "m.jsonl"))
+    d.update(kw)
+    return cls(**d)
+
+
+def logs(cfg):
+    with open(cfg.log_path) as f:
+        return [json.loads(line) for line in f]
+
+
+def read_pgm(path):
+    raw = open(path, "rb").read()
+    head, body = raw.split(b"255\n", 1)
+    w, h = map(int, head.split()[1:3])
+    return np.frombuffer(body, np.uint8).reshape(h, w)
+
+
+def test_log_cadence_respected(tmp_path):
+    cfg = base(tmp_path, log_every=5)
+    res = run_simulation(cfg, device="cpu", quiet=True)
+    assert [l["step"] for l in logs(cfg)] == [5, 10, 15, 20]
+    assert res.state.step == 20 and res.windows == 4
+
+
+def test_misaligned_start_keeps_cadence(tmp_path):
+    """A run started at step 3 (``state=``) re-aligns on its first window:
+    the absolute log cadence still fires, and the run stops at the
+    configured total."""
+    cfg = base(tmp_path, log_every=5)
+    s0 = init_scene(cfg, device="cpu")
+    st = make_state(*s0[:4], step=3, device="cpu")
+    res = run_simulation(cfg, device="cpu", quiet=True, state=st)
+    assert [l["step"] for l in logs(cfg)] == [5, 10, 15, 20]
+    assert res.state.step == 20 and res.windows == 4
+
+
+@pytest.mark.parametrize("log_every,k_img,total,energy", [
+    (3, 2, 12, 0), (5, 2, 10, 0), (10, 4, 30, 20), (0, 3, 100, 0),
+    (0, 0, 100, 0), (12, 2, 12, 0)])
+def test_windows_equal_nbodyax(tmp_path, log_every, k_img, total, energy):
+    """The same config gives the same window count as nbodyax's driver,
+    frames and energy cadence included."""
+    kw = dict(log_every=log_every, total_iterations=total,
+              energy_every=energy, save_images=bool(k_img),
+              save_image_every=k_img or 10, img_width=32, img_height=32,
+              particle_count=16)
+    got = run_simulation(base(tmp_path / "t", image_path=str(
+        tmp_path / "t" / "f"), **kw), device="cpu", quiet=True)
+    want = jax_run(base(tmp_path / "j", JaxConfig, backend="jnp",
+                        image_path=str(tmp_path / "j" / "f"), **kw),
+                   quiet=True)
+    assert got.windows == want.windows
+    assert got.frames_written == want.frames_written
+
+
+def test_schedule_stride_and_windows():
+    """The stride is the gcd of the cadences, cut to the frame cadence when
+    it does not divide it; 16 frame cadences or 64 steps without one."""
+    cases = [(dict(log_every=10), 10, 10), (dict(log_every=12), 4, 12),
+             (dict(log_every=10), 4, 2), (dict(log_every=3), 2, 1),
+             (dict(log_every=0), 3, 48), (dict(log_every=0), 0, 64),
+             (dict(log_every=5, energy_every=15), 0, 5)]
+    for kw, k_img, stride in cases:
+        sched = _Schedule(SimConfig(total_iterations=100, **kw), k_img)
+        assert sched.stride == stride, (kw, k_img)
+    sched = _Schedule(SimConfig(total_iterations=20, log_every=5), 2)
+    # from a frame-misaligned start the window ends at the frame boundary
+    assert [sched.next_window(i) for i in (0, 3, 4, 5, 19)] == [5, 1, 1, 1,
+                                                                 1]
+
+
+def test_frame_content_is_post_step_state(tmp_path):
+    """Frame iteration_j holds the state after step j, not before it."""
+    cfg = base(tmp_path, save_images=True, save_image_every=2,
+               total_iterations=4, log_every=2, img_width=64, img_height=64,
+               image_path=str(tmp_path / "frames"))
+    run_simulation(cfg, device="cpu", quiet=True)
+    assert sorted(os.listdir(tmp_path / "frames")) == ["iteration_0.ppm",
+                                                       "iteration_2.ppm"]
+    state = init_scene(cfg, device="cpu")
+    step = make_step(PhysicsParams.from_config(cfg))
+    state = step(state)
+    np.testing.assert_array_equal(
+        read_pgm(tmp_path / "frames" / "iteration_0.ppm"),
+        render_state(state, cfg).numpy())
+    state = step(step(state))
+    np.testing.assert_array_equal(
+        read_pgm(tmp_path / "frames" / "iteration_2.ppm"),
+        render_state(state, cfg).numpy())
+
+
+def test_multi_frame_windows_equal_stride_one(tmp_path):
+    """Six frames inside one 12-step window equal a run with a window a
+    step, byte for byte, and so do the final states."""
+    common = dict(save_images=True, save_image_every=2, total_iterations=12,
+                  particle_count=64, img_width=64, img_height=64)
+    cf = base(tmp_path / "f", log_every=12,
+              image_path=str(tmp_path / "f" / "frames"), **common)
+    c1 = base(tmp_path / "o", log_every=1,
+              image_path=str(tmp_path / "o" / "frames"), **common)
+    rf = run_simulation(cf, device="cpu", quiet=True)
+    r1 = run_simulation(c1, device="cpu", quiet=True)
+    assert (rf.windows, r1.windows) == (1, 12)
+    names = sorted(os.listdir(tmp_path / "f" / "frames"))
+    assert names == sorted(os.listdir(tmp_path / "o" / "frames"))
+    assert names == sorted(f"iteration_{j}.ppm" for j in range(0, 12, 2))
+    assert rf.frames_written == r1.frames_written == 6
+    for nm in names:
+        assert ((tmp_path / "f" / "frames" / nm).read_bytes()
+                == (tmp_path / "o" / "frames" / nm).read_bytes()), nm
+    for a, b in zip(rf.state[:4], r1.state[:4]):
+        assert torch.equal(a, b)
+
+
+def test_no_cadence_runs_to_completion(tmp_path):
+    cfg = base(tmp_path, log_every=0, total_iterations=100)
+    res = run_simulation(cfg, device="cpu", quiet=True)
+    assert res.state.step == 100 and res.windows == 2    # 64 + 36
+    assert not os.path.exists(cfg.log_path) or not logs(cfg)
+
+
+def test_energy_logging_cadence(tmp_path):
+    """energyEvery adds potential and total energy at its own cadence, the
+    potential equal to nbodyax's driver's to rtol 1e-5."""
+    kw = dict(log_every=5, energy_every=10, softening=50.0)
+    cfg = base(tmp_path / "t", **kw)
+    run_simulation(cfg, device="cpu", quiet=True)
+    jcfg = base(tmp_path / "j", JaxConfig, backend="jnp", **kw)
+    os.makedirs(tmp_path / "j", exist_ok=True)
+    jax_run(jcfg, quiet=True)
+    got = {r["step"]: r for r in logs(cfg)}
+    want = {r["step"]: r for r in logs(jcfg)}
+    assert sorted(got) == sorted(want) == [5, 10, 15, 20]
+    for s in (5, 15):
+        assert "potential_energy" not in got[s]
+    for s in (10, 20):
+        r = got[s]
+        assert set(r) == set(want[s])
+        np.testing.assert_allclose(r["potential_energy"],
+                                   want[s]["potential_energy"], rtol=1e-5)
+        assert abs(r["total_energy"] - (r["potential_energy"]
+                                        + r["kinetic_energy"])) <= \
+            1e-6 * max(abs(r["total_energy"]), 1.0)
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_potential_energy_matches_nbodyax(dim):
+    """Dead bodies, a coincident pair (d = 0 is left out) and eps 0 or 30,
+    over more rows than one chunk at N = 2,100."""
+    rng = np.random.RandomState(7 + dim)
+    for n in (60, 2100):
+        pos = rng.uniform(-5000, 5000, (n, dim)).astype(np.float32)
+        vel = rng.uniform(-1, 1, (n, dim)).astype(np.float32)
+        mass = rng.uniform(1e10, 1e17, n).astype(np.float32)
+        mass[[3, 11]] = 0.0
+        radius = rng.uniform(50, 200, n).astype(np.float32)
+        pos[5] = pos[6]
+        js = jstate.make_state(pos, vel, mass, radius)
+        ts = from_numpy(jstate.to_numpy(js), "cpu")
+        for eps in (0.0, 30.0):
+            want = float(jmetrics.potential_energy(js, eps=eps))
+            got = tmetrics.potential_energy(ts, eps=eps)
+            assert got.dim() == 0 and got.dtype == torch.float32
+            np.testing.assert_allclose(float(got), want, rtol=1e-5)
+
+
+def test_dt_mean_matches_nbodyax(tmp_path):
+    """Under adaptiveDt every log line carries dt_mean, the mean dt since
+    the last line, equal to nbodyax's to rtol 1e-5."""
+    kw = dict(adaptive_dt=True, log_every=5, total_iterations=10,
+              particle_count=64)
+    cfg = base(tmp_path / "t", **kw)
+    run_simulation(cfg, device="cpu", quiet=True)
+    jcfg = base(tmp_path / "j", JaxConfig, backend="jnp", **kw)
+    os.makedirs(tmp_path / "j", exist_ok=True)
+    jax_run(jcfg, quiet=True)
+    got, want = logs(cfg), logs(jcfg)
+    assert [l["step"] for l in got] == [l["step"] for l in want] == [5, 10]
+    t = 0.0
+    for g, w in zip(got, want):
+        assert g["sim_time"] > t
+        assert 0.2 / 1024 * 0.99 <= g["dt_mean"] <= 0.2 * 1.01
+        np.testing.assert_allclose(g["dt_mean"], w["dt_mean"], rtol=1e-5)
+        np.testing.assert_allclose(g["sim_time"], w["sim_time"], rtol=1e-5)
+        t = g["sim_time"]
+
+
+def test_profile_writes_a_trace(tmp_path):
+    cfg = base(tmp_path, total_iterations=4, particle_count=16)
+    run_simulation(cfg, device="cpu", quiet=True,
+                   profile_dir=str(tmp_path / "prof"))
+    with open(tmp_path / "prof" / "trace.json") as f:
+        trace = json.load(f)
+    assert trace["traceEvents"]

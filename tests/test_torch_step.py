@@ -3,9 +3,9 @@
 One step of the port, on the JAX package's state carried across with
 ``from_numpy``, against ``nbodyax.physics.step.make_step`` in every
 collision and boundary mode, with the euler, leapfrog and yoshida4
-integrators; then the C++-oracle trajectories
-(tests/golden/ref_*.npz) at tests/test_golden.py's gates, through both of
-the port's CPU engines.
+integrators, and five adaptive-dt steps of each integrator; then the
+C++-oracle trajectories (tests/golden/ref_*.npz) at tests/test_golden.py's
+gates, through both of the port's CPU engines.
 """
 
 import functools
@@ -110,14 +110,32 @@ def test_state_round_trip():
     assert torch.equal(alive_mask(st), st.mass > 0)
 
 
-@pytest.mark.parametrize("field", [dict(integrator="leapfrog"),
-                                   dict(integrator="yoshida4"),
-                                   dict(integrator="euler")])
-def test_unported_integrators_raise(field):
-    """Adaptive dt is not ported yet, under any integrator."""
-    p = tstep.PhysicsParams(adaptive_dt=True, **field)
-    with pytest.raises(NotImplementedError, match="A5"):
-        tstep.make_step(p)
+@pytest.mark.parametrize("integrator", ["leapfrog", "yoshida4", "euler"])
+def test_adaptive_step_matches_jax(integrator):
+    """Five adaptive-dt steps of the port against nbodyax's on one
+    numpy-made state, at the fixed-dt parity's gates."""
+    kw = dict(dt=0.1, field_width=1000.0, field_height=1000.0,
+              growth_rate=0.1, integrator=integrator, adaptive_dt=True)
+    jp, tp = jstep.PhysicsParams(**kw), tstep.PhysicsParams(**kw)
+    st = jstate.make_state(*random_arrays())
+    state = from_numpy(jstate.to_numpy(st), "cpu")
+    jfn = jstep.make_step(jp)
+    tfn = tstep.make_step(tp, accum_fn=build_accum_fn("auto", tp, "cpu"))
+    for _ in range(5):
+        st, state = jfn(st), tfn(state)
+    want, got = jstate.to_numpy(st), to_numpy(state)
+    np.testing.assert_array_equal(got["mass"] > 0, want["mass"] > 0)
+    np.testing.assert_allclose(got["mass"], want["mass"], rtol=1e-6)
+    np.testing.assert_allclose(got["radius"], want["radius"], rtol=1e-6)
+    np.testing.assert_allclose(got["vel"], want["vel"], rtol=0,
+                               atol=1e-6 * np.abs(want["vel"]).max())
+    np.testing.assert_allclose(got["pos"], want["pos"], rtol=0,
+                               atol=1e-6 * 1000.0)
+    assert int(got["step"]) == int(want["step"]) == 5
+    # each dt is a min over bodies of sqrt(r/|a|): the forces' last bits
+    # (two engines' sum orders) reach it, so sim_time gets mass's rtol
+    np.testing.assert_allclose(got["sim_time"], want["sim_time"], rtol=1e-6)
+    assert 0 < got["sim_time"] < 5 * 0.1     # dt shrank below the ceiling
 
 
 @pytest.mark.parametrize("engine", ["jnp", "auto"])
