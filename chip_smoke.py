@@ -32,7 +32,9 @@ Phases, each of which exits non-zero on failure:
 4b. the full default run, nothing cut (2,000 steps, 200 frames): ``Time
    taken`` of graph windows and of the eager runner in turns (graph,
    eager, eager, graph), the window count, the graph runs' peak device
-   memory, graph and eager bitwise equal; one graph run without frames;
+   memory and their host seconds by part (scene, captures, windows,
+   frames, checkpoints), the kernel libraries' load in a fresh process,
+   graph and eager bitwise equal; one graph run without frames;
 5. time the kernel against its plain version at N = 16,384 and alone at
    N = 131,072, with the splits chosen, the CUDA launches a call, pairs/s,
    the share of the bound and the SM clock under load; its own device time
@@ -128,7 +130,37 @@ Phases, each of which exits non-zero on failure:
     (B4 also against one gather), bounds from the run's cell occupancy
     (23 flops a live 3-D pair; bytes with 10 moments), each kernel's own
     device time; one 3-D bh step (CUDA-event span, host wall), its
-    profiler breakdown, device idle share and peak memory.
+    profiler breakdown, device idle share and peak memory;
+28. compaction through graph windows: the default scene with
+    ``compactEvery=50 checkpointEvery=100 autoResume=true`` for 400 steps,
+    the capacities it shrinks through, graph against eager bitwise (state,
+    logs, frames, capacities), B1 once a step by replays across the
+    re-captures, no segment of an old runner's graph pools left after its
+    close (and the memory the allocator then holds), peak device
+    memory allocated (within 16 MiB of the plain run's; the reserved peak
+    is printed) and ``Time taken`` against the same run without compaction;
+29. resume on the card: 200 graph steps straight against 100 steps and
+    ``--resume auto`` to 200, state bitwise and the later log lines equal
+    apart from the timings; the same with ``forceModel=bh`` (the
+    checkpoint's knobs adopted);
+30. autoResume with a fault raised between two replays at step 120: the
+    run reloads the step-100 checkpoint, captures anew and ends on the
+    unfaulted state, bitwise;
+31. examples/galaxy_momentum.txt as shipped, cut to ``--steps 1000`` (N =
+    65,536, momentum, 40 frames, checkpoints at 0, 500, 1,000): total
+    mass conserved, the first 100 steps bitwise equal to the eager
+    runner's, ``Time taken``, B1's device time a call, a checkpoint's
+    seconds;
+32. examples/million_bodies.txt as shipped (exact, N = 1,048,576), cut to
+    ``--steps 20 --set checkpointEvery=10``: the C++ scene fill against
+    the pure-Python draw (bitwise, seconds), a checkpoint's seconds,
+    whether compaction fired, ``Time taken``; a resume from step 10 into a
+    checkpoint directory of its own, bitwise equal to the straight run;
+33. three_body, galaxy and plummer in 2-D and 3-D and uniform without
+    parity, 50 steps each, graph against eager bitwise; the default scene
+    with ``forceModel=bh compactEvery=50`` for 200 steps: the capacities,
+    the knobs re-resolved after each shrink, ``bh_overflow`` 0, B3 and B5
+    once a step. Each of phases 28-33 prints its seconds.
 
 The line before the last is a JSON object describing each kernel (the
 wrapper call's CUDA-event time ``ms``, the kernel's own device time by
@@ -461,14 +493,18 @@ TIMING_KEYS = ("wall_ms", "steps_per_sec", "pairs_per_sec",
                "equivalent_pairs_per_sec")
 
 
-def cli_run(argv, eager=False, keep_frames=True, cfg_text=None):
-    """``nbodyax_torch.cli`` in a fresh temp dir, on ``cfg_text`` written
-    there as nbodyConfig.txt (without it the built-in default config), its
-    windows through CUDA graphs or, with ``eager``, through the driver's
-    eager runner (its private ``_eager`` switch; the CLI has no flag for
-    it). Returns a dict: stdout, rc, the run's RunResult, B1's launches,
-    the JSON log lines and the frames ({name: bytes}, or their sha256
-    digests without ``keep_frames``)."""
+def cli_run(argv, eager=False, keep_frames=True, cfg_text=None,
+            workdir=None, image_dir=None):
+    """``nbodyax_torch.cli`` in a fresh temp dir (or in ``workdir``, which
+    is kept, so a later run there can resume), on ``cfg_text`` written
+    there as nbodyConfig.txt (without it the built-in default config, or
+    the ``--config`` in ``argv``), its windows through CUDA graphs or, with
+    ``eager``, through the driver's eager runner (its private ``_eager``
+    switch; the CLI has no flag for it). The frames go to ``frames`` in the
+    run's directory, or with ``image_dir`` to the config's own imagePath,
+    that directory relative to the run's. Returns a dict: stdout, rc, the
+    run's RunResult, B1's launches, the JSON log lines and the frames
+    ({name: bytes}, or their sha256 digests without ``keep_frames``)."""
     from nbodyax_torch import cli, driver
     from nbodyax_torch.physics.kernels import tile_accumulators_raw
     results = []
@@ -477,18 +513,21 @@ def cli_run(argv, eager=False, keep_frames=True, cfg_text=None):
         results.append(driver.run_simulation(*a, _eager=eager, **k))
         return results[-1]
 
-    with tempfile.TemporaryDirectory() as tmp:
-        frames_dir = os.path.join(tmp, "frames")
-        cwd, saved, buf = os.getcwd(), cli.run_simulation, io.StringIO()
+    with contextlib.ExitStack() as stack:
+        tmp = workdir or stack.enter_context(tempfile.TemporaryDirectory())
+        os.makedirs(tmp, exist_ok=True)
+        frames_dir = os.path.join(tmp, image_dir or "frames")
         if cfg_text is not None:
             with open(os.path.join(tmp, "nbodyConfig.txt"), "w") as f:
                 f.write(cfg_text)
+        cwd, saved, buf = os.getcwd(), cli.run_simulation, io.StringIO()
         os.chdir(tmp)
         cli.run_simulation = run
         try:
             tile_accumulators_raw.launches = 0
             with contextlib.redirect_stdout(buf):
-                rc = cli.main(argv + ["--set", f"imagePath={frames_dir}"])
+                rc = cli.main(argv + ([] if image_dir else
+                                      ["--set", f"imagePath={frames_dir}"]))
             launches = tile_accumulators_raw.launches
             frames = read_frames(frames_dir, keep_frames)
         finally:
@@ -616,6 +655,17 @@ def phase_full_default_run():
     check(bare["rc"] == 0 and bare["launches"] == 2000,
           "full default run without frames")
     g = runs["graph"][0]["result"]
+    for r in runs["graph"]:
+        print(f"full default run, graph windows, Time taken {r['taken']} s: "
+              f"host seconds {seconds_text(r['result'])}")
+    # a fresh process loads the libraries the smoke's phase 1 built
+    load = subprocess.run(
+        [sys.executable, "-c", "import time, torch; t = time.perf_counter(); "
+         "from nbodyax_torch.physics import _build; _build.load_library(); "
+         "print(time.perf_counter() - t)"], cwd=HERE, capture_output=True,
+        text=True, check=True).stdout.strip()
+    print(f"full default run: kernel load in a fresh process (libraries "
+          f"built) {float(load):.4f} s")
     print(f"full default run (N=16384, 2,000 steps, 200 frames): Time taken "
           f"graph {[r['taken'] for r in runs['graph']]} s, eager "
           f"{[r['taken'] for r in runs['eager']]} s (turns graph, eager, "
@@ -2052,6 +2102,366 @@ def phase_bh_vs_exact_3d(dev):
         check(ok, f"3-D bh collision channels differ from exact: {mode}")
 
 
+# ---------------------------------------------------------------------------
+# Long runs: compaction, checkpoints, resume, autoResume, the shipped
+# examples and the other scenes
+# ---------------------------------------------------------------------------
+
+EXAMPLES = os.path.join(HERE, "examples")
+
+
+def same_state(a, b):
+    """Two states bit for bit (step included)."""
+    return (all(torch.equal(x, y) for x, y in zip(a[:4], b[:4]))
+            and torch.equal(a.sim_time, b.sim_time) and a.step == b.step)
+
+
+def strip_timings(logs, after=0):
+    return [{k: v for k, v in rec.items() if k not in TIMING_KEYS}
+            for rec in logs if rec["step"] > after]
+
+
+def seconds_text(res):
+    return ", ".join(f"{k} {v:.4f}" for k, v in res.seconds.items())
+
+
+# A compacting run's peak may exceed the plain run's by this much: two
+# identical runs' peaks have differed by up to 0.9 MiB on the H100, while a
+# graph pool kept across a re-capture adds the next capture's, over 100 MiB
+# at 8,192 slots.
+PEAK_MARGIN = 16 * 2 ** 20
+
+
+def phase_compaction_graph():
+    """The default scene with ``compactEvery=50 checkpointEvery=100
+    autoResume=true`` for 400 steps: the capacities it shrinks through;
+    graph windows against the eager runner bitwise (state, logs, frames,
+    capacities); B1 once a step by replays across the re-captures; after
+    each old runner's close no segment of its graphs' private pools is
+    left (the memory the allocator then holds above the run's start is
+    printed); peak device memory and ``Time taken`` against the same run
+    without compaction, in turns (compacting, plain, plain, compacting)."""
+    from nbodyax_torch import driver
+
+    sets = ["--steps", "400", "--set", "checkpointEvery=100",
+            "--set", "autoResume=true"]
+    compact = sets + ["--set", "compactEvery=50"]
+    runs = {"compact": [], "plain": []}
+    peaks = {"compact": [], "plain": []}
+    reserved = {"compact": [], "plain": []}
+    after_close, kept = [], []
+    real_close = driver._GraphWindows.close
+
+    def close(self):
+        pools = {tuple(g[0].pool()) for g in self.graphs.values()}
+        real_close(self)
+        after_close.append(torch.cuda.memory_reserved() - base_reserved)
+        kept.extend({tuple(seg["segment_pool_id"])
+                     for seg in torch.cuda.memory_snapshot()} & pools)
+
+    driver._GraphWindows.close = close
+    try:
+        for kind in ("compact", "plain", "plain", "compact"):
+            # above what is allocated at the start (earlier runs' states
+            # live on)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            base_reserved = torch.cuda.memory_reserved()
+            closes = len(after_close)
+            r = cli_run(compact if kind == "compact" else sets,
+                        keep_frames=False)
+            peaks[kind].append(torch.cuda.max_memory_allocated() - base)
+            reserved[kind].append(torch.cuda.max_memory_reserved()
+                                  - base_reserved)
+            check(r["rc"] == 0 and r["launches"] == 400
+                  and len(r["frames"]) == 40,
+                  f"compaction run ({kind}): rc {r['rc']}, B1 "
+                  f"{r['launches']} launches in 400 steps, "
+                  f"{len(r['frames'])} frames")
+            check(len(after_close) - closes
+                  == (len(r["result"].capacities) if kind == "compact"
+                      else 0),
+                  f"compaction run ({kind}): {len(after_close) - closes} "
+                  f"runner closes for {r['result'].capacities}")
+            runs[kind].append(r)
+    finally:
+        driver._GraphWindows.close = real_close
+    g = runs["compact"][0]
+    e = cli_run(compact, eager=True, keep_frames=False)
+    same = same_run(g, e, "compaction through graph windows")
+    caps = g["result"].capacities
+    check(len(caps) >= 2, f"the capacity shrank {len(caps)} times: {caps}")
+    check(caps == e["result"].capacities, f"capacities: graph {caps}, eager "
+          f"{e['result'].capacities}")
+    check(e["launches"] == 400, f"eager compaction run: B1 {e['launches']}")
+    check(not kept, f"segments of closed graphs' private pools left on "
+          f"the card: {kept}")
+    check(max(peaks["compact"]) <= min(peaks["plain"]) + PEAK_MARGIN,
+          f"peak device memory with compaction {peaks['compact']} above "
+          f"the plain runs' {peaks['plain']} by more than {PEAK_MARGIN}")
+    check(all(same_state(r["result"].state, g["result"].state)
+              for r in runs["compact"]), "two compacting runs differ")
+    mib = {k: [round(p / 2 ** 20, 3) for p in v]
+           for k, v in (*peaks.items(),
+                        *(("reserved_" + k, v) for k, v in reserved.items()),
+                        ("after_close", after_close))}
+    print(f"compaction through graph windows (default scene, 400 steps, "
+          f"compactEvery=50 checkpointEvery=100 autoResume=true): capacity "
+          f"16384 -> {' -> '.join(str(c) for _, c in caps)} at steps "
+          f"{[s for s, _ in caps]}; graph vs eager: {same}, capacities "
+          f"equal; B1 400 launches by replays across the re-captures")
+    print(f"compaction: Time taken compacting "
+          f"{[time_taken(r['out']) for r in runs['compact']]} s, without "
+          f"compaction {[time_taken(r['out']) for r in runs['plain']]} s "
+          f"(turns compacting, plain, plain, compacting); peak device memory "
+          f"allocated above the start {mib['compact']} MiB compacting, "
+          f"{mib['plain']} MiB plain; reserved {mib['reserved_compact']} MiB "
+          f"compacting, {mib['reserved_plain']} MiB plain; reserved after "
+          f"each runner's close {mib['after_close']} MiB; host seconds of "
+          f"the first compacting run: {seconds_text(g['result'])}")
+
+
+def phase_resume(bh=False):
+    """A straight graph run of 200 steps of the default scene
+    (``checkpointEvery=100``) against 100 steps and ``--resume auto`` to
+    200 in the same directory: the state bitwise, the log lines after step
+    100 equal apart from the timings. With ``bh`` the same for
+    ``forceModel=bh`` (every knob auto; eager windows), where the resumed
+    run adopts the checkpoint's knobs. Returns the straight run."""
+    sets = ["--set", "checkpointEvery=100", "--no-images"]
+    if bh:
+        sets += ["--set", "forceModel=bh"]
+    straight = cli_run(["--steps", "200"] + sets)
+    with tempfile.TemporaryDirectory() as work:
+        first = cli_run(["--steps", "100"] + sets, workdir=work)
+        resumed = cli_run(["--steps", "200", "--resume", "auto"] + sets,
+                          workdir=work)
+    for r in (straight, first, resumed):
+        check(r["rc"] == 0, f"resume run exited {r['rc']}")
+    label = "bh" if bh else "exact, graph windows"
+    check(same_state(straight["result"].state, resumed["result"].state),
+          f"resume ({label}): the resumed state differs from the straight "
+          f"run's")
+    check(strip_timings(straight["logs"], 100) == strip_timings(
+        resumed["logs"]), f"resume ({label}): log lines after step 100 "
+          f"differ")
+    knobs = [l for l in resumed["out"].splitlines()
+             if l.startswith("resumed bh knobs")]
+    check(not bh or len(knobs) == 1, "no 'resumed bh knobs' line")
+    extra = f"; {knobs[0]}" if bh else (
+        f"; B1 {resumed['launches']} launches in the 100 resumed steps")
+    if bh:
+        check(all(r["bh_overflow"] == 0 for r in straight["logs"]),
+              "resume (bh): bh_overflow")
+    print(f"resume ({label}, default scene): 200 steps straight against 100 "
+          f"+ --resume auto to 200: state bitwise equal, "
+          f"{len(resumed['logs'])} log lines after step 100 equal apart from "
+          f"the timings{extra}; Time taken straight "
+          f"{time_taken(straight['out'])} s, resumed part "
+          f"{time_taken(resumed['out'])} s")
+    return straight
+
+
+def phase_auto_resume_fault(reference):
+    """autoResume on the graph path with a fault raised once between two
+    replays at step 120, past the step-100 checkpoint: the run reloads it,
+    captures its graphs anew and ends on the unfaulted run's state
+    (``reference``, phase 29's straight run), bitwise."""
+    from nbodyax_torch import driver
+    real = driver._GraphWindows._replay
+    raised = []
+
+    def flaky(self, k, frames):
+        if self.buf.step == 120 and not raised:
+            raised.append(self.buf.step)
+            raise RuntimeError("injected fault between replays")
+        return real(self, k, frames)
+
+    driver._GraphWindows._replay = flaky
+    try:
+        r = cli_run(["--steps", "200", "--no-images", "--set",
+                     "checkpointEvery=100", "--set", "autoResume=true"])
+    finally:
+        driver._GraphWindows._replay = real
+    check(r["rc"] == 0 and raised == [120],
+          f"autoResume run: rc {r['rc']}, faults {raised}")
+    retry = [l for l in r["out"].splitlines() if l.startswith("Run failed")]
+    check(len(retry) == 1, f"retries: {retry}")
+    check(same_state(r["result"].state, reference["result"].state),
+          "autoResume: the state differs from the unfaulted run's")
+    print(f"autoResume, fault between replays at step 120: {retry[0]}; the "
+          f"run ended at step {r['result'].state.step}, state bitwise equal "
+          f"to the unfaulted run's; B1 {r['launches']} launches (200 steps "
+          f"+ 20 redone)")
+
+
+def checkpoints_in(work, sub="checkpoints"):
+    d = os.path.join(work, sub)
+    return sorted(int(n[5:14]) for n in os.listdir(d)
+                  if n.startswith("step_") and n.endswith(".npz"))
+
+
+def phase_galaxy_example(dev):
+    """examples/galaxy_momentum.txt as shipped, cut to 1,000 steps:
+    N = 65,536, momentum mode, B1 through graph windows, 40 frames,
+    checkpoints at 0, 500 and 1,000; total mass conserved to f32
+    rounding (rel 1e-6, from the states in float64); its first 100 steps
+    (state, logs, frames) bitwise equal to the eager runner's; B1's device
+    time a call at N = 65,536 on the scene, and the checkpoint seconds."""
+    from nbodyax_torch.config import parse_config_file
+    from nbodyax_torch.physics.kernels import (body_features,
+                                               tile_accumulators_raw)
+    from nbodyax_torch.scenes import init_scene
+    cfg_path = os.path.join(EXAMPLES, "galaxy_momentum.txt")
+    argv = ["--config", cfg_path]
+    with tempfile.TemporaryDirectory() as work:
+        r = cli_run(argv + ["--steps", "1000"], keep_frames=False,
+                    workdir=work, image_dir="galaxy_img")
+        cks = checkpoints_in(work)
+    check(r["rc"] == 0 and r["launches"] == 1000 and len(r["frames"]) == 40,
+          f"galaxy example: rc {r['rc']}, B1 {r['launches']}, "
+          f"{len(r['frames'])} frames")
+    check(cks == [0, 500, 1000], f"galaxy example checkpoints {cks}")
+    cfg = parse_config_file(cfg_path)
+    scene = init_scene(cfg, device=dev)
+    m0 = float(scene.mass.double().sum())
+    m1 = float(r["result"].state.mass.double().sum())
+    rel = abs(m1 - m0) / m0
+    check(rel <= 1e-6, f"galaxy example: total mass moved by {rel:.3e}")
+    g = cli_run(argv + ["--steps", "100"], keep_frames=False,
+                image_dir="galaxy_img")
+    e = cli_run(argv + ["--steps", "100"], eager=True, keep_frames=False,
+                image_dir="galaxy_img")
+    same = same_run(g, e, "galaxy example, first 100 steps")
+    check(strip_timings(r["logs"])[:4] == strip_timings(e["logs"]),
+          "galaxy example: the 1,000-step run's first log lines differ from "
+          "the eager runner's")
+    feats = body_features(*scene[:4])
+    kw = dict(mode="momentum", eps=cfg.softening, growth_rate=0.1)
+    dms, detail = device_ms(
+        lambda: tile_accumulators_raw(feats, feats, 0, 0, **kw), B1_TAGS)
+    res = r["result"]
+    print(f"galaxy example (N=65536, momentum, cut to --steps 1000): Time "
+          f"taken {time_taken(r['out'])} s, {res.windows} windows, 40 frames,"
+          f" checkpoints at {cks} ({res.seconds['checkpoints'] / 3:.4f} s a "
+          f"save); alive {r['logs'][-1]['alive']}; total mass rel change "
+          f"{rel:.3e} (gate 1e-6); first 100 steps vs eager: {same}; host "
+          f"seconds {seconds_text(res)}")
+    print(f"galaxy example: B1 momentum mode at N=65536 on the scene "
+          f"{dms:.4f} ms a call by the profiler ({detail})")
+
+
+def phase_million_example():
+    """examples/million_bodies.txt as shipped (exact, N = 1,048,576, no
+    frames, compactEvery=50 checkpointEvery=100 autoResume=true), cut to
+    ``--steps 20 --set checkpointEvery=10``: the native scene fill against
+    the pure-Python draw (bitwise, seconds of each), the seconds a
+    checkpoint takes, whether compaction fired, ``Time taken``; then a
+    resume from the step-10 checkpoint into a checkpoint directory of its
+    own to step 20, bitwise equal to the straight run."""
+    from nbodyax_torch import native
+    from nbodyax_torch.config import parse_config_file
+    from nbodyax_torch.rng import scene_arrays
+    cfg_path = os.path.join(EXAMPLES, "million_bodies.txt")
+    cfg = parse_config_file(cfg_path)
+    check(native.available(), "the C++ scene fill did not build")
+    args = (cfg.seed, cfg.particle_count, cfg.field_width, cfg.field_height,
+            cfg.min_body_mass, cfg.max_body_mass, cfg.min_radius,
+            cfg.max_radius)
+    t0 = time.perf_counter()
+    fast = scene_arrays(*args)
+    t1 = time.perf_counter()
+    slow = scene_arrays(*args, native=False)
+    t2 = time.perf_counter()
+    check(all(np.array_equal(a, b) for a, b in zip(fast, slow)),
+          "the native 1M scene differs from the pure-Python draw")
+    argv = ["--config", cfg_path, "--steps", "20", "--set",
+            "checkpointEvery=10"]
+    with tempfile.TemporaryDirectory() as work:
+        r = cli_run(argv, workdir=work)
+        cks = checkpoints_in(work)
+        ck10 = os.path.join(work, "checkpoints", "step_000000010.npz")
+        resumed = cli_run(argv + ["--resume", ck10, "--set",
+                                  "checkpointPath=resumed_ck"], workdir=work)
+        cks2 = checkpoints_in(work, "resumed_ck")
+    res = r["result"]
+    check(r["rc"] == 0 and resumed["rc"] == 0 and r["launches"] == 20
+          and resumed["launches"] == 10,
+          f"million example: rc {r['rc']}, {resumed['rc']}, B1 "
+          f"{r['launches']}, {resumed['launches']} launches")
+    check(cks == [0, 10, 20] and cks2 == [20],
+          f"million example checkpoints {cks}, resumed {cks2}")
+    check(same_state(res.state, resumed["result"].state),
+          "million example: the resumed state differs from the straight "
+          "run's")
+    check(all(np.isfinite(v) for v in r["logs"][-1].values()
+              if isinstance(v, float)), f"non-finite log: {r['logs'][-1]}")
+    fired = (f"fired: {res.capacities}" if res.capacities
+             else "did not fire")
+    print(f"million example (exact, N=1048576; cuts: --steps 20, --set "
+          f"checkpointEvery=10): Time taken {time_taken(r['out'])} s, "
+          f"{r['logs'][-1]['alive']} alive, compaction {fired}"
+          f" (a shrink needs fewer than 419,431 alive); checkpoints at {cks},"
+          f" {res.seconds['checkpoints'] / 3:.4f} s a save; host seconds "
+          f"{seconds_text(res)}")
+    print(f"million example: scene N=1048576 seed {cfg.seed} native "
+          f"{t1 - t0:.4f} s, pure Python {t2 - t1:.4f} s, bitwise equal; "
+          f"resumed from step 10 into a checkpoint directory of its own: "
+          f"state bitwise equal to the straight run's, Time taken "
+          f"{time_taken(resumed['out'])} s")
+
+
+def phase_scenes(dev):
+    """three_body, galaxy and plummer in 2-D and 3-D and uniform without
+    parity (2-D) for 50 steps of the default config each (a frame every
+    10), graph windows against the eager runner, bitwise."""
+    from nbodyax_torch.config import SimConfig
+    from nbodyax_torch.scenes import init_scene
+    rows = []
+    cases = [(sc, d) for sc in ("three_body", "galaxy", "plummer")
+             for d in (2, 3)] + [("uniform", 2)]
+    for scene, dims in cases:
+        cfg = SimConfig(total_iterations=50, scene=scene, dimensions=dims)
+        state = init_scene(cfg, device=dev, parity=scene != "uniform")
+        g, e = run_pair(cfg, state)
+        label = f"{scene} {dims}-D" + (" parity=False" if scene == "uniform"
+                                       else "")
+        same_run(g, e, label)
+        check(g["launches"] == e["launches"] == 50,
+              f"{label}: B1 {g['launches']}, {e['launches']} launches")
+        rows.append(f"{label} N={state.capacity} {g['logs'][-1]['alive']}")
+    print(f"scenes, 50 steps, graph vs eager: state, logs and frames "
+          f"bitwise equal, B1 50 launches each; alive at the end: "
+          f"{', '.join(rows)}")
+
+
+def phase_bh_compaction():
+    """The default scene with ``forceModel=bh compactEvery=50`` for 200
+    steps: the capacities, the knobs re-resolved after each shrink,
+    ``bh_overflow`` 0 at every log line, B3 and B5 once a step."""
+    from nbodyax_torch.physics.near_kernel import slots_near
+    from nbodyax_torch.physics.slotpack_kernel import pack_slots
+    slots_near.launches = pack_slots.moment_launches = 0
+    r = cli_run(["--steps", "200", "--no-images", "--set", "forceModel=bh",
+                 "--set", "compactEvery=50"])
+    b3, b5 = slots_near.launches, pack_slots.moment_launches
+    caps = r["result"].capacities if r["result"] else []
+    knobs = [l for l in r["out"].splitlines() if l.startswith("bh auto")]
+    check(r["rc"] == 0 and len(caps) >= 1, f"bh compaction: rc {r['rc']}, "
+          f"capacities {caps}")
+    check(len(knobs) == 1 + len(caps), f"bh knob lines {knobs}")
+    check(all(rec["bh_overflow"] == 0 for rec in r["logs"]),
+          f"bh_overflow {[rec['bh_overflow'] for rec in r['logs']]}")
+    check(b3 == 200 and b5 == 200, f"bh compaction: B3 {b3}, B5 {b5} "
+          f"launches in 200 steps")
+    print(f"bh compaction (default scene, 200 steps, compactEvery=50): "
+          f"capacity 16384 -> {' -> '.join(str(c) for _, c in caps)} at "
+          f"steps {[s for s, _ in caps]}; knobs {knobs}; bh_overflow 0 at "
+          f"{len(r['logs'])} log lines; B3 {b3} and B5 {b5} launches; Time "
+          f"taken {time_taken(r['out'])} s")
+
+
 def kernel_name(mangled):
     """``name<template args>`` of a kernel in an anonymous namespace, from
     its mangled name (the mangled name itself otherwise)."""
@@ -2177,6 +2587,20 @@ def main() -> int:
     phase_bh_direct(dims=3, mode="elastic", far="fmm", order=2)
     bh3_times = phase_bh_timing(dev, arrays3_1m, bh3_cfg, BH3D_LEVELS,
                                 BH3D_S, BH3D_CI)
+    resume_ref = []
+
+    for name, phase in (
+            ("28 compaction through graph windows", phase_compaction_graph),
+            ("29 resume, exact", lambda: resume_ref.append(phase_resume())),
+            ("29 resume, bh", lambda: phase_resume(bh=True)),
+            ("30 autoResume", lambda: phase_auto_resume_fault(resume_ref[0])),
+            ("31 galaxy example", lambda: phase_galaxy_example(dev)),
+            ("32 million example", phase_million_example),
+            ("33 scenes", lambda: phase_scenes(dev)),
+            ("33 bh compaction", phase_bh_compaction)):
+        t0 = time.perf_counter()
+        phase()
+        print(f"phase {name}: {time.perf_counter() - t0:.1f} s")
     loaded = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jaxlib", "nbodyax")]
     check(not loaded, f"the port loaded JAX or nbodyax: {loaded[:5]}")

@@ -5,15 +5,20 @@ card. ``nbodyax`` stays the reference the port is held against; the port
 imports neither it nor JAX. Module names mirror ``nbodyax``:
 
 - ``config``   — SimConfig and the nbodyConfig.txt parser.
-- ``rng``      — the bit-exact reference scene generator.
-- ``state``    — SimState tensors; ``scenes`` — scene constructors.
+- ``rng``      — the bit-exact reference scene generator; ``native`` — its
+  C++ fill, built with g++ at first use.
+- ``state``    — SimState tensors and compaction; ``scenes`` — scene
+  constructors (uniform, three_body, galaxy, plummer).
 - ``physics``  — the torch oracle, the CUDA all-pairs kernel and its
   backward kernel, collisions, the step (euler, leapfrog, yoshida4).
 - ``backends`` — which all-pairs engine a config selects.
 - ``autodiff`` — differentiable rollouts (``rollout``, ``make_loss``).
 - ``render``   — rasterizer and P5 writer.
 - ``metrics``  — conservation scalars, step meter, JSONL logging.
-- ``driver`` / ``cli`` — the end-to-end run.
+- ``io.checkpoint`` — checkpoint files, in ``nbodyax``'s format.
+- ``driver`` / ``cli`` — the end-to-end run: windows, checkpoints, resume,
+  recovery, compaction.
+- ``tools``    — frames to a GIF, a checkpoint's bodies as text.
 
 The names below load on first use, so importing the package has no side
 effects.

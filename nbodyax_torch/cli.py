@@ -1,12 +1,14 @@
 """Command-line entry point.
 
 ``python -m nbodyax_torch.cli [--config nbodyConfig.txt] [--set key=value ...]
-[--device cuda|cpu] [--profile DIR]``
+[--device cuda|cpu] [--profile DIR] [--resume CKPT|auto]``
 
-The arguments of ``nbodyax.cli`` (less ``--debug-nans`` and ``--resume``),
-plus ``--device``, which defaults to ``cuda``: asking for CUDA without a
-card is an error, never a quiet switch to the CPU. ``--profile DIR``
-writes a ``torch.profiler`` trace of the step loop to ``DIR/trace.json``.
+The arguments of ``nbodyax.cli`` (less ``--debug-nans``), plus
+``--device``, which defaults to ``cuda``: asking for CUDA without a card is
+an error, never a quiet switch to the CPU. ``--profile DIR`` writes a
+``torch.profiler`` trace of the step loop to ``DIR/trace.json``.
+``--resume CKPT`` continues from a checkpoint file (written by either
+package), ``--resume auto`` from the newest one in ``checkpointPath``.
 With no ``nbodyConfig.txt`` in the working directory the built-in default
 scene runs. Prints the settings and the reference's final ``Time taken:``
 line.
@@ -20,13 +22,14 @@ import sys
 
 from nbodyax_torch.config import SimConfig, apply_overrides, parse_config_file
 from nbodyax_torch.driver import resolve_device, run_simulation
+from nbodyax_torch.io.checkpoint import latest_checkpoint
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="nbodyax_torch",
-        description="n-body simulation with collisions (2-D, or 3-D with "
-        "forceModel=exact), PyTorch + CUDA")
+        description="n-body simulation with collisions, 2-D or 3-D, "
+        "PyTorch + CUDA")
     ap.add_argument("--config", default="nbodyConfig.txt",
                     help="config file (reference nbodyConfig.txt format)")
     ap.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
@@ -41,6 +44,9 @@ def main(argv=None) -> int:
                          "to DIR/trace.json")
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default cuda)")
+    ap.add_argument("--resume", default=None, metavar="CKPT",
+                    help="resume from checkpoint file (or 'auto' for latest "
+                         "in checkpointPath)")
     args = ap.parse_args(argv)
 
     try:
@@ -70,6 +76,15 @@ def main(argv=None) -> int:
         cfg.total_iterations = args.steps
     if args.no_images:
         cfg.save_images = False
+    if args.resume == "auto":
+        ck = latest_checkpoint(cfg.checkpoint_path)
+        if ck is None:
+            print(f"No checkpoint found in {cfg.checkpoint_path}",
+                  file=sys.stderr)
+            return 1
+        cfg.resume_from = ck
+    elif args.resume:
+        cfg.resume_from = args.resume
 
     run_simulation(cfg, device=device, quiet=args.quiet,
                    profile_dir=args.profile)

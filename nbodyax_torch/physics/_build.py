@@ -25,7 +25,8 @@ import threading
 from pathlib import Path
 from types import SimpleNamespace
 
-__all__ = ["load_library", "build_log", "SOURCES", "BUILD_DIR"]
+__all__ = ["load_library", "build_log", "cached_build", "SOURCES",
+           "BUILD_DIR", "KernelCompileError"]
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(_PKG / "csrc" / name for name in (
@@ -38,7 +39,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _lib = None
-_key = None
+_libs: list[Path] = []    # the loaded libraries' paths, for build_log
+
+
+class KernelCompileError(RuntimeError):
+    """The compiler (``nvcc``, or ``g++`` for the host scene fill) is
+    missing or failed on a source."""
 
 
 def _nvcc() -> str:
@@ -47,8 +53,8 @@ def _nvcc() -> str:
             shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]:
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH "
-                       "to build the nbodyax_torch CUDA kernels")
+    raise KernelCompileError("nvcc not found: set CUDA_HOME or put nvcc on "
+                             "PATH to build the nbodyax_torch CUDA kernels")
 
 
 def _bind(fwd: ctypes.CDLL, bwd: ctypes.CDLL, near: ctypes.CDLL,
@@ -76,8 +82,8 @@ def _bind(fwd: ctypes.CDLL, bwd: ctypes.CDLL, near: ctypes.CDLL,
     return SimpleNamespace(**fns)
 
 
-def _build_all(targets) -> None:
-    """Run one ``nvcc`` a missing library, all at once. Each builds beside
+def _build_all(compiler: str, flags, targets) -> None:
+    """Run one compiler a missing library, all at once. Each builds beside
     its target and is renamed into place, so another process building at
     the same time never loads a half-written library."""
     jobs = []
@@ -86,20 +92,20 @@ def _build_all(targets) -> None:
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
             os.close(fd)
             proc = subprocess.Popen(
-                [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
+                [compiler, *flags, "-o", tmp, str(src)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             jobs.append((src, so, tmp, proc))
         failed = []
         for src, so, tmp, proc in jobs:
             out, _ = proc.communicate()
             if proc.returncode != 0:
-                failed.append(f"nvcc failed ({proc.returncode}) on {src}:\n"
-                              f"{out}")
+                failed.append(f"{compiler} failed ({proc.returncode}) on "
+                              f"{src}:\n{out}")
             else:
                 so.with_suffix(".log").write_text(out)
                 os.replace(tmp, so)
         if failed:
-            raise RuntimeError("\n".join(failed))
+            raise KernelCompileError("\n".join(failed))
     finally:
         for _, _, tmp, proc in jobs:
             if proc.poll() is None:
@@ -109,25 +115,34 @@ def _build_all(targets) -> None:
                 os.unlink(tmp)
 
 
+def cached_build(find_compiler, flags, sources, deps=()) -> list[Path]:
+    """The shared libraries of ``sources`` in BUILD_DIR, one a source,
+    named ``<stem>_<key>.so`` where the key hashes ``flags`` and every
+    source and ``deps`` file. The missing ones are built, one compiler
+    a source, all started together; ``find_compiler()`` gives the
+    compiler's path and is called only then. Raises KernelCompileError."""
+    h = hashlib.sha256(" ".join(flags).encode())
+    for path in (*sources, *deps):
+        h.update(Path(path).read_bytes())
+    key = h.hexdigest()[:16]
+    targets = [(Path(src), BUILD_DIR / f"{Path(src).stem}_{key}.so")
+               for src in sources]
+    missing = [(src, so) for src, so in targets if not so.exists()]
+    if missing:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        _build_all(find_compiler(), flags, missing)
+    return [so for _, so in targets]
+
+
 def load_library() -> SimpleNamespace:
     """Compile (once per hash of the sources and flags) and load every
     kernel library; returns their bound entry points."""
-    global _lib
+    global _lib, _libs
     with _lock:
         if _lib is not None:
             return _lib
-        global _key
-        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for src in SOURCES + HEADERS:
-            h.update(src.read_bytes())
-        key = _key = h.hexdigest()[:16]
-        targets = [(src, BUILD_DIR / f"{src.stem}_{key}.so")
-                   for src in SOURCES]
-        missing = [(src, so) for src, so in targets if not so.exists()]
-        if missing:
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            _build_all(missing)
-        _lib = _bind(*(ctypes.CDLL(str(so)) for _, so in targets))
+        _libs = cached_build(_nvcc, NVCC_FLAGS, SOURCES, HEADERS)
+        _lib = _bind(*(ctypes.CDLL(str(so)) for so in _libs))
         return _lib
 
 
@@ -135,7 +150,8 @@ def build_log(source: str) -> str | None:
     """``nvcc``'s output (with ``ptxas``'s register and spill report) for
     the library of ``source`` (e.g. "pair_kernel.cu") that load_library
     loaded, or None if that library was built by another process."""
-    if _key is None:
-        return None
-    log = BUILD_DIR / f"{Path(source).stem}_{_key}.log"
-    return log.read_text() if log.exists() else None
+    for so in _libs:
+        if so.name.startswith(Path(source).stem + "_"):
+            log = so.with_suffix(".log")
+            return log.read_text() if log.exists() else None
+    return None

@@ -3,8 +3,10 @@
 A pure-Python copy of ``nbodyax/rng.py``: the reference's combined
 xorshift / LCG / multiply-with-carry generator (``jbutil::randgen``) and the
 draw order of its scene (x, y, mass, radius per body, each value computed in
-double and narrowed to float32). The reference's default N = 16,384 takes
-well under a second here, so the port carries no native fast path.
+double and narrowed to float32). The recurrence is sequential, so large
+scenes go through the C++ fill of ``nbodyax_torch.native`` when it builds;
+the pure-Python draw here stays the source of truth, bit for bit the
+same.
 """
 
 from __future__ import annotations
@@ -65,13 +67,22 @@ class RefRandgen:
 
 def scene_arrays(seed: int, n: int, field_width: int, field_height: int,
                  min_mass: float, max_mass: float,
-                 min_radius: float, max_radius: float):
+                 min_radius: float, max_radius: float, *,
+                 native: bool = True):
     """The reference's random scene as float32 numpy arrays
     ``(pos [n, 2], vel [n, 2], mass [n], radius [n])``.
 
     Draw order per body: x, y, mass, radius, each computed in double and
-    narrowed to float32 on store. Bodies start at rest.
+    narrowed to float32 on store. Bodies start at rest. With ``native``
+    (the default) the C++ fill draws it where it is available; else, or
+    with ``native=False``, this module's pure-Python generator.
     """
+    if native:
+        from nbodyax_torch import native as _native
+        if _native.available():
+            return _native.scene_arrays(seed, n, field_width, field_height,
+                                        min_mass, max_mass, min_radius,
+                                        max_radius)
     g = RefRandgen(seed)
     pos = np.empty((n, 2), np.float32)
     mass = np.empty((n,), np.float32)

@@ -15,7 +15,13 @@ import numpy as np
 import torch
 
 __all__ = ["SimState", "make_state", "alive_mask", "alive_count", "to_numpy",
-           "from_numpy"]
+           "from_numpy", "compact_state", "shrink_due", "MIN_CAPACITY",
+           "SLACK"]
+
+# ``compact_state``'s bucket: the power of 2 above the live count times
+# SLACK, and never below MIN_CAPACITY (nbodyax's defaults)
+MIN_CAPACITY = 256
+SLACK = 1.25
 
 
 class SimState(NamedTuple):
@@ -83,3 +89,43 @@ def from_numpy(d: dict, device) -> SimState:
                       step=int(np.asarray(d["step"])),
                       sim_time=float(np.asarray(d.get("sim_time", 0.0))),
                       device=device)
+
+
+def _bucket(n_alive: int) -> int:
+    """The capacity ``compact_state`` picks for ``n_alive`` live bodies:
+    nbodyax's numpy expression, so the two packages never pick different
+    sizes."""
+    return max(MIN_CAPACITY,
+               1 << int(np.ceil(np.log2(max(1, n_alive) * SLACK))))
+
+
+def shrink_due(n_alive: int, capacity: int) -> bool:
+    """The driver's merger-phase trigger, nbodyax's: compact as soon as
+    ``compact_state`` would at least halve a power-of-2 ``capacity``, i.e.
+    ``n_alive * 2 * SLACK <= capacity`` above MIN_CAPACITY."""
+    return n_alive * 2 * SLACK <= capacity and capacity > MIN_CAPACITY
+
+
+def compact_state(state: SimState) -> SimState:
+    """Shrink the capacity to the power-of-2 bucket above the live count.
+
+    Counterpart of ``nbodyax.state.compact_state`` at its defaults: the
+    bucket is ``max(MIN_CAPACITY, 1 << ceil(log2(alive * SLACK)))``.
+    Survivors keep their order, and the slots past them are zero. Returns
+    the input itself when no smaller bucket fits. The gather runs on the
+    state's device; only the live count is read to the host.
+    """
+    alive = state.mass > 0
+    new_cap = _bucket(int(alive.sum()))
+    if new_cap >= state.capacity:
+        return state
+    take = torch.nonzero(alive).squeeze(1)[:new_cap]
+
+    def gather(x):
+        out = x.new_zeros((new_cap,) + tuple(x.shape[1:]))
+        out[:take.shape[0]] = x[take]
+        return out
+
+    return SimState(gather(state.pos), gather(state.vel),
+                    gather(state.mass), gather(state.radius), state.step,
+                    state.sim_time.clone())

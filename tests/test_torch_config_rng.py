@@ -103,9 +103,3 @@ def test_scene_matches_golden_record0(name, n, field):
     np.testing.assert_array_equal(st.radius.numpy(), gradius)
     assert st.pos.dtype == torch.float32 and not st.vel.any()
 
-
-@pytest.mark.parametrize("scene", ["galaxy", "plummer", "three_body"])
-def test_unported_scenes_raise(scene):
-    cfg = tconfig.SimConfig(particle_count=8, scene=scene)
-    with pytest.raises(NotImplementedError, match="A3"):
-        init_scene(cfg, device="cpu")
