@@ -7,8 +7,9 @@ Run from the root of a checkout, on a machine with one CUDA card:
 
 Phases, each of which exits non-zero on failure:
 
-1. print the card's name and power limit; build the four CUDA sources of
-   ``nbodyax_torch/csrc`` (one ``nvcc`` a source, in parallel) and print the
+1. print the card's name and power limit; build the five CUDA sources of
+   ``nbodyax_torch/csrc`` (one ``nvcc`` a source, in parallel; the fifth,
+   ``graph_cond.cu``, sets the bh step's CUDA-graph IF nodes) and print the
    build time and ptxas's registers and spills of every kernel;
 2. compare the all-pairs kernel with its plain PyTorch version on the card,
    in all four collision modes, at N = 300 (random, dense overlaps) and at
@@ -74,17 +75,19 @@ Phases, each of which exits non-zero on failure:
     error at ring 1, collision channels exact where every overlap is in
     the window, and the FMM table on the card equal to the CPU's (no TF32);
 14. the bh main path: ``nbodyax_torch.cli`` on the 1M scene with
-    ``forceModel=bh`` and default bh knobs for 20 steps: the knobs it
-    picked, ``bh_overflow`` 0, B3 and B5 once a step;
+    ``forceModel=bh`` and default bh knobs for 20 steps through graph
+    windows: the knobs it picked, ``bh_overflow`` 0, B3 and B5 once a step
+    by replays;
 15. ``bhFar=direct bhOrder=1`` on the CLI at N = 65,536: B4 once a step;
-    ``adaptiveDt=1`` with the FMM (the bh step's eager loop): B3 and B5
-    once a step, ``bh_overflow`` 0, ``dt_mean`` within ``dt_bounds``;
+    ``adaptiveDt=1`` with the FMM: B3 and B5 once a step, ``bh_overflow``
+    0, ``dt_mean`` within ``dt_bounds``; all through graph windows;
 16. B3, B4 and B5 timed against their plain versions at N = 1M (B4 also
     against one gather), with bounds from the run's cell occupancy and
     each kernel's own device time; B4 and B5 by device time on the crowded
     N = 262,144 state and on a uniform state of the same N (the crowded
-    cell's tail); one bh step (CUDA-event span, host wall of 5 steps), and
-    one step's profiler breakdown and device idle share;
+    cell's tail); one bh step (CUDA-event span, host wall of 5 steps) and
+    the host wall a step of 10-step graph windows beside it, and one
+    step's profiler breakdown and device idle share;
 17. ``dimensions=3``: B1's 3-D form against its plain version at N = 300
     (random, dense overlaps, a dead slot) and on the 3-D default scene
     (N = 16,384), all four modes at eps 0 and reference and elastic at
@@ -129,8 +132,9 @@ Phases, each of which exits non-zero on failure:
 27. B3, B4 and B5 in 3-D timed against their plain versions at N = 1M
     (B4 also against one gather), bounds from the run's cell occupancy
     (23 flops a live 3-D pair; bytes with 10 moments), each kernel's own
-    device time; one 3-D bh step (CUDA-event span, host wall), its
-    profiler breakdown, device idle share and peak memory;
+    device time; one 3-D bh step (CUDA-event span, host wall) and the
+    graph windows' host wall a step, its profiler breakdown, device idle
+    share and peak memory;
 28. compaction through graph windows: the default scene with
     ``compactEvery=50 checkpointEvery=100 autoResume=true`` for 400 steps,
     the capacities it shrinks through, graph against eager bitwise (state,
@@ -142,7 +146,7 @@ Phases, each of which exits non-zero on failure:
 29. resume on the card: 200 graph steps straight against 100 steps and
     ``--resume auto`` to 200, state bitwise and the later log lines equal
     apart from the timings; the same with ``forceModel=bh`` (the
-    checkpoint's knobs adopted);
+    checkpoint's knobs adopted); every run through graph windows;
 30. autoResume with a fault raised between two replays at step 120: the
     run reloads the step-100 checkpoint, captures anew and ends on the
     unfaulted state, bitwise;
@@ -160,7 +164,25 @@ Phases, each of which exits non-zero on failure:
     parity, 50 steps each, graph against eager bitwise; the default scene
     with ``forceModel=bh compactEvery=50`` for 200 steps: the capacities,
     the knobs re-resolved after each shrink, ``bh_overflow`` 0, B3 and B5
-    once a step. Each of phases 28-33 prints its seconds.
+    once a step by replays across the re-captures;
+34. ``forceModel=bh`` through graph windows: the bh million CLI in 2-D
+    and 3-D for 20 steps, graph against eager in turns (graph, eager,
+    eager, graph), state and logs bitwise, B3 and B5 once a step; the host
+    wall a step, ``Time taken``, peak device memory, each capture's
+    seconds and node count (IF nodes and the nodes in their bodies), the
+    run length at which the graphs break even, and, in an eager run of
+    its own, the completion tier and the qualifying giants of each step;
+    the galaxy example with ``forceModel=bh compactEvery=50`` (in 2-D it
+    merges and compacts, in 3-D bhAdapt retunes its knobs: each a new
+    capture), 400 steps in 2-D and 100 in 3-D, graph against eager:
+    ``Time taken``, captures and their seconds; in 2-D a crowded N =
+    262,144 state (a quarter of the bodies in one patch: the full
+    completion tier, then giants) graph against eager, and the giant
+    pass's two tiers timed at N = 1M; a profiled 10-step window graph
+    against eager: the device's idle share from the gaps between its
+    kernels with the profiled span beside the step by CUDA events without
+    the profiler (the profiler slows a graph of many small kernels), kernel
+    time and kernels a step. Each of phases 28-34 prints its seconds.
 
 The line before the last is a JSON object describing each kernel (the
 wrapper call's CUDA-event time ``ms``, the kernel's own device time by
@@ -932,10 +954,11 @@ def device_ms(fn, tags, reps=20):
     return ms, ", ".join(f"{k} {v:.2f} us" for k, v in sorted(per.items()))
 
 
-def profile_breakdown(fn, reps, label, top=12):
+def profile_breakdown(fn, reps, label, top=12, detail=False):
     """torch.profiler over ``reps`` calls of fn: device time and device ops
     a call, the window's host wall, the device's idle share and the
-    heaviest kernels. Returns device ms a call."""
+    heaviest kernels. Returns device ms a call, with ``detail`` (device ms,
+    device ops, host wall ms) a call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -962,7 +985,34 @@ def profile_breakdown(fn, reps, label, top=12):
     for d, key, cnt in rows[:top]:
         print(f"  {d / reps / 1e3:9.4f} ms/call  {100 * d / total:5.1f}%  "
               f"x{cnt // reps:<4d} {key[:90]}")
+    if detail:
+        busy, span = kernel_timeline(prof)
+        print(f"profiler, {label}, one timeline: kernels busy {busy:.4f} ms "
+              f"of the {span:.4f} ms from the first kernel's start to the "
+              f"last one's end, idle {100 * (1 - busy / span):.2f}%")
+        return (total / reps / 1e3, sum(r[2] for r in rows) / reps,
+                win / reps / 1e3, busy, span)
     return total / reps / 1e3
+
+
+def kernel_timeline(prof):
+    """The traced kernels on the device's own timeline: the union of their
+    intervals (kernels that overlap count once) and the span from the
+    first kernel's start to the last one's end, both in ms."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    iv = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                for e in events if e.get("cat") == "kernel")
+    check(iv, "the profiler traced no kernel")
+    busy, end = 0.0, iv[0][0]
+    for a, b in iv:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e3, (end - iv[0][0]) / 1e3
 
 
 def scene_features(dev, n):
@@ -1598,9 +1648,10 @@ def config_text(cfg):
 
 def phase_bh_main_path(cfg):
     """The CLI on the N = 1M bh configuration (2-D, or 3-D with
-    ``dimensions=3``) for 20 steps: the knobs it picked, bh_overflow 0, a
-    finite state, B3 and B5 once a step, the run's peak device memory.
-    Returns (B3 launches, B5 launches)."""
+    ``dimensions=3``) for 20 steps through graph windows: the knobs it
+    picked, bh_overflow 0, a finite state, B3 and B5 once a step by
+    replays, the run's peak device memory. Returns (B3 launches, B5
+    launches)."""
     from nbodyax_torch.physics.near_kernel import slots_near
     from nbodyax_torch.physics.slotpack_kernel import pack_slots
     torch.cuda.reset_peak_memory_stats()
@@ -1611,6 +1662,7 @@ def phase_bh_main_path(cfg):
     b3, b5 = slots_near.launches, pack_slots.moment_launches
     peak = torch.cuda.max_memory_allocated()
     check(rc == 0, f"bh cli exited {rc}")
+    graph_windows_ran(r, f"bh main path {cfg.dimensions}-D")
     knobs = [l for l in out.splitlines() if l.startswith("bh auto-selected")]
     check(len(knobs) == 1, "no 'bh auto-selected' line")
     logs = [json.loads(l) for l in out.splitlines() if l.startswith("{")]
@@ -1645,9 +1697,9 @@ def phase_bh_direct(dims=2, mode="reference", far="direct", order=1,
     """The CLI at N = 65,536 for 10 steps with ``bhNear=slots``. With
     ``bhFar=direct bhOrder=1`` the slots engine packs with B4 (no moments
     wanted) once a step, with the FMM with B5; B3 runs once a step either
-    way. In 3-D the rows are 7 wide, 10 in elastic mode. ``adaptive``:
-    ``adaptiveDt=1`` (the bh step's eager loop), every log line's dt_mean
-    within dt_bounds. Returns the launches of (B3, B4, B5)."""
+    way, counted by graph replays. In 3-D the rows are 7 wide, 10 in
+    elastic mode. ``adaptive``: ``adaptiveDt=1``, every log line's
+    dt_mean within dt_bounds. Returns the launches of (B3, B4, B5)."""
     from nbodyax_torch.config import SimConfig
     from nbodyax_torch.physics.near_kernel import slots_near
     from nbodyax_torch.physics.slotpack_kernel import pack_slots
@@ -1665,6 +1717,7 @@ def phase_bh_direct(dims=2, mode="reference", far="direct", order=1,
     label = f"bh {far} order {order} {dims}-D {mode}" + (
         " adaptiveDt=1" if adaptive else "")
     check(rc == 0, f"{label}: cli exited {rc}")
+    graph_windows_ran(r, label)
     logs = [json.loads(l) for l in out.splitlines() if l.startswith("{")]
     check(logs and logs[-1]["bh_overflow"] == 0, f"{label}: logs {logs[-1:]}")
     want = (10, 10, 0) if (far, order) == ("direct", 1) else (10, 0, 10)
@@ -1796,6 +1849,21 @@ def phase_bh_timing(dev, arrays_1m, cfg, levels=8, S=40, ci=32):
           f"wall a step median {walls[2]:.4f} ms (5 steps, "
           f"{walls[0]:.4f}-{walls[-1]:.4f}), peak device memory of one step "
           f"{peak / 2 ** 30:.3f} GiB")
+    # the same step through the driver's graph windows, beside the eager
+    from nbodyax_torch import driver
+    runner = driver._GraphWindows(step, state, rcfg, 0, 10, None)
+    runner.advance(10, False)
+    torch.cuda.synchronize()
+    gwalls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        runner.advance(10, False)
+        torch.cuda.synchronize()
+        gwalls.append((time.perf_counter() - t0) * 1e2)
+    runner.close()
+    print(f"bh step {dims}-D N=1M through graph windows (10 steps a window): "
+          f"host wall a step {[round(w, 4) for w in sorted(gwalls)]} ms over "
+          f"3 windows, against the eager step's median {walls[2]:.4f} ms")
 
     profile_breakdown(lambda: step(state), 3, f"bh step {dims}-D N=1M")
     return times
@@ -2227,8 +2295,8 @@ def phase_resume(bh=False):
     (``checkpointEvery=100``) against 100 steps and ``--resume auto`` to
     200 in the same directory: the state bitwise, the log lines after step
     100 equal apart from the timings. With ``bh`` the same for
-    ``forceModel=bh`` (every knob auto; eager windows), where the resumed
-    run adopts the checkpoint's knobs. Returns the straight run."""
+    ``forceModel=bh`` (every knob auto; graph windows too), where the
+    resumed run adopts the checkpoint's knobs. Returns the straight run."""
     sets = ["--set", "checkpointEvery=100", "--no-images"]
     if bh:
         sets += ["--set", "forceModel=bh"]
@@ -2239,6 +2307,7 @@ def phase_resume(bh=False):
                           workdir=work)
     for r in (straight, first, resumed):
         check(r["rc"] == 0, f"resume run exited {r['rc']}")
+        graph_windows_ran(r, "resume")
     label = "bh" if bh else "exact, graph windows"
     check(same_state(straight["result"].state, resumed["result"].state),
           f"resume ({label}): the resumed state differs from the straight "
@@ -2438,8 +2507,9 @@ def phase_scenes(dev):
 
 def phase_bh_compaction():
     """The default scene with ``forceModel=bh compactEvery=50`` for 200
-    steps: the capacities, the knobs re-resolved after each shrink,
-    ``bh_overflow`` 0 at every log line, B3 and B5 once a step."""
+    steps through graph windows: the capacities, the knobs re-resolved
+    after each shrink, ``bh_overflow`` 0 at every log line, B3 and B5 once
+    a step by replays across the re-captures."""
     from nbodyax_torch.physics.near_kernel import slots_near
     from nbodyax_torch.physics.slotpack_kernel import pack_slots
     slots_near.launches = pack_slots.moment_launches = 0
@@ -2450,6 +2520,7 @@ def phase_bh_compaction():
     knobs = [l for l in r["out"].splitlines() if l.startswith("bh auto")]
     check(r["rc"] == 0 and len(caps) >= 1, f"bh compaction: rc {r['rc']}, "
           f"capacities {caps}")
+    graph_windows_ran(r, "bh compaction")
     check(len(knobs) == 1 + len(caps), f"bh knob lines {knobs}")
     check(all(rec["bh_overflow"] == 0 for rec in r["logs"]),
           f"bh_overflow {[rec['bh_overflow'] for rec in r['logs']]}")
@@ -2460,6 +2531,288 @@ def phase_bh_compaction():
           f"steps {[s for s, _ in caps]}; knobs {knobs}; bh_overflow 0 at "
           f"{len(r['logs'])} log lines; B3 {b3} and B5 {b5} launches; Time "
           f"taken {time_taken(r['out'])} s")
+
+
+def graph_windows_ran(r, label):
+    """The run went through graph windows: it captured."""
+    res = r["result"]
+    check(res is not None and res.seconds["capture"] > 0,
+          f"{label}: no CUDA graph was captured")
+
+
+@contextlib.contextmanager
+def recorded_captures():
+    """Every graph capture of the driver while inside: [(window size,
+    frames, seconds, (nodes with an IF node as one, IF nodes, nodes in
+    their bodies))]."""
+    from nbodyax_torch import driver
+    real = driver._GraphWindows._capture
+    got = []
+
+    def capture(self, k, frames):
+        t0 = time.perf_counter()
+        out = real(self, k, frames)
+        got.append((k, frames, time.perf_counter() - t0,
+                    self.nodes[k, frames]))
+        return out
+
+    driver._GraphWindows._capture = capture
+    try:
+        yield got
+    finally:
+        driver._GraphWindows._capture = real
+
+
+@contextlib.contextmanager
+def recorded_tiers():
+    """For an eager run, each step's completion tier (by its list's real
+    entries) and its qualifying giants, read on the host: [(tier, real
+    entries, list length)] and [qualifying giants]."""
+    from nbodyax_torch.physics import barneshut as tbh
+    real_init, real_key = tbh._Tiers.__init__, tbh._giant_key
+    tiers, giants = [], []
+
+    def init(self, ps, n):
+        real_init(self, ps, n)
+        k = int((ps < n).sum())
+        tiers.append(("none" if k == 0 else "1024" if k <= min(
+            tbh._COMP_TIER, ps.shape[0]) else "full", k, ps.shape[0]))
+
+    def key(*a, **kw):
+        out = real_key(*a, **kw)
+        giants.append(int((out > 0).sum()))
+        return out
+
+    tbh._Tiers.__init__, tbh._giant_key = init, key
+    try:
+        yield tiers, giants
+    finally:
+        tbh._Tiers.__init__, tbh._giant_key = real_init, real_key
+
+
+def bh_graph_runs(text, steps, label, arrays=None, argv=(),
+                  turns=("graph", "eager", "eager", "graph"), gated=True,
+                  tiers=True):
+    """One config through graph windows and the eager runner in ``turns``,
+    through the CLI (``text`` as its config file, or the ``--config`` in
+    ``argv``) or, from the state ``arrays``, the driver; with ``tiers`` one
+    eager run more, untimed, that reads each step's tiers on the host, so
+    the timed runs are the plain A/B path. Every run's state and logs
+    (timings aside) bitwise equal. ``gated``: B3 and B5 once a step and
+    bh_overflow 0; else (a merging run, whose knobs move) B3 and B5 launched
+    as often in every run. Returns {"graph": [...], "eager": [...],
+    "tiers": [...]} of dicts with the host wall a step (ms, captures
+    excluded), Time taken, the peak device memory, the captures, B3's and
+    B5's launches and (the tiers run) the tiers a step."""
+    from nbodyax_torch import driver
+    from nbodyax_torch.config import parse_config_text
+    from nbodyax_torch.physics.near_kernel import slots_near
+    from nbodyax_torch.physics.slotpack_kernel import pack_slots
+    from nbodyax_torch.state import make_state
+    runs = {"graph": [], "eager": [], "tiers": []}
+    for which in turns + (("tiers",) if tiers else ()):
+        eager = which != "graph"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        slots_near.launches = pack_slots.moment_launches = 0
+        with recorded_captures() as caps, (
+                recorded_tiers() if which == "tiers" else
+                contextlib.nullcontext(((), ()))) as (tier, giants):
+            if arrays is None:
+                r = cli_run(list(argv), cfg_text=text, eager=eager)
+            else:
+                with tempfile.TemporaryDirectory() as tmp:
+                    cfg = dataclasses.replace(
+                        parse_config_text(text),
+                        log_path=os.path.join(tmp, "log.jsonl"))
+                    res = driver.run_simulation(
+                        cfg, device="cuda", quiet=True,
+                        state=make_state(*arrays, device="cuda"),
+                        _eager=eager)
+                    with open(cfg.log_path) as f:
+                        logs = [json.loads(x) for x in f]
+                r = {"rc": 0, "result": res, "logs": logs,
+                     "out": f"Time taken: {res.wall_seconds:.4f}"}
+        b3, b5 = slots_near.launches, pack_slots.moment_launches
+        check(r["rc"] == 0, f"{label} {which}: exited {r['rc']}")
+        if gated:
+            check(b3 == steps and b5 == steps, f"{label} {which}: B3 {b3} "
+                  f"and B5 {b5} launches in {steps} steps")
+            check(all(x["bh_overflow"] == 0 for x in r["logs"]),
+                  f"{label} {which}: bh_overflow "
+                  f"{[x['bh_overflow'] for x in r['logs']]}")
+        if not eager:
+            graph_windows_ran(r, f"{label} {which}")
+        res = r["result"]
+        runs[which].append({
+            "r": r, "wall": res.seconds["windows"] / steps * 1e3,
+            "taken": time_taken(r["out"]), "capture": res.seconds["capture"],
+            "peak": torch.cuda.max_memory_allocated(), "caps": caps,
+            "b3": b3, "b5": b5, "tiers": list(tier), "giants": list(giants)})
+    first = runs["graph"][0]
+    for run in runs["graph"][1:] + runs["eager"] + runs["tiers"]:
+        check(same_state(first["r"]["result"].state, run["r"]["result"].state),
+              f"{label}: graph and eager windows end on different states")
+        check(strip_timings(first["r"]["logs"])
+              == strip_timings(run["r"]["logs"]),
+              f"{label}: graph and eager log lines differ")
+        check((run["b3"], run["b5"]) == (first["b3"], first["b5"]),
+              f"{label}: B3, B5 launched {run['b3']}, {run['b5']} times in "
+              f"one run and {first['b3']}, {first['b5']} in another")
+    return runs
+
+
+def break_even(label, g, e):
+    """The run length at which graph windows pay back their captures: a
+    graph run's capture seconds over the host wall a step they save."""
+    cap = sum(x["capture"] for x in g) / len(g)
+    saved = (sum(x["wall"] for x in e) / len(e)
+             - sum(x["wall"] for x in g) / len(g))
+    print(f"{label}: graph windows break even after "
+          + (f"{cap / saved * 1e3:.1f} steps" if saved > 0 else "no run "
+             "length (no step saved)")
+          + f" ({cap:.4f} s of capture a run against {saved:.4f} ms of host "
+          f"wall saved a step)")
+
+
+def giant_tier_costs(state, levels=8):
+    """The giant pass's tiers at N = 1M (the 2-D bh million scene, its
+    first 12 bodies grown to radius 5e4, far past half a level-8 cell):
+    each tier's body by CUDA events, called eagerly and replayed as a CUDA
+    graph of its own (what a bh graph window pays for it)."""
+    from nbodyax_torch.physics import barneshut as tbh
+    from nbodyax_torch.physics.bh_grid import _extent
+    from nbodyax_torch.physics.pairwise import (PairAccumulators,
+                                                empty_accumulators)
+    pos, vel, mass, radius = (t.clone() for t in state[:4])
+    n = pos.shape[0]
+    radius[:12] = 5e4
+    ext = _extent(pos, mass > 0)
+    key = tbh._giant_key(mass, radius, ext, levels, 1)
+    ids = torch.arange(n, dtype=torch.int32, device=pos.device)
+    got = {}
+    for count in (tbh._GIANT_TIER, 1024):
+        into = PairAccumulators(*(t.clone() for t in empty_accumulators(
+            ids)))
+
+        def tier():
+            tbh._giant_tier(pos, vel, mass, radius, key, count, ext=ext,
+                            levels=levels, ring=1, growth_rate=0.1,
+                            mode="reference", chunk=8192, into=into)
+
+        eager = time_ms(tier, reps=3, warm=1)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            tier()
+        got[count] = (eager, time_ms(graph.replay, reps=5, warm=1))
+        del graph
+    print(f"giant pass N={n}, {int((key > 0).sum())} qualifying (CUDA "
+          f"events; a step with no qualifying body skips both tiers): the "
+          f"{tbh._GIANT_TIER}-entry tier {got[tbh._GIANT_TIER][0]:.4f} ms "
+          f"a call eagerly, {got[tbh._GIANT_TIER][1]:.4f} ms a graph "
+          f"replay; the 1,024-entry tier {got[1024][0]:.4f} ms, "
+          f"{got[1024][1]:.4f} ms")
+
+
+def phase_bh_graphs(dev, dims):
+    """Phase 34: the bh million CLI (examples/million_bodies.txt's scene,
+    default bh knobs, 20 steps) through graph windows against the eager
+    runner in turns, and the run length at which the graphs break even;
+    examples/galaxy_momentum.txt with forceModel=bh and compactEvery=50
+    (in 2-D it merges and compacts, in 3-D bhAdapt retunes its knobs: each
+    a new capture), cut to 400 steps in 2-D and 100 in 3-D, graph against
+    eager; in 2-D also a crowded N = 262,144 state (a
+    quarter of the bodies in one patch) through the driver, graph against
+    eager, and the giant tiers' cost; and a profiled 10-step graph window
+    against 10 eager steps."""
+    from nbodyax_torch import driver
+    from nbodyax_torch.scenes import init_scene
+    cfg = million_config(dimensions=dims)
+    text = config_text(cfg)
+    steps = cfg.total_iterations
+    label = f"bh million {dims}-D"
+    runs = bh_graph_runs(text, steps, label)
+    g, e = runs["graph"], runs["eager"]
+    print(f"{label}: {steps} steps, graph and eager bitwise equal (state, "
+          f"logs), B3 and B5 once a step by replays; host wall a step graph "
+          f"{[round(x['wall'], 4) for x in g]} ms, eager "
+          f"{[round(x['wall'], 4) for x in e]} ms (turns graph, eager, "
+          f"eager, graph); Time taken graph {[x['taken'] for x in g]} s, "
+          f"eager {[x['taken'] for x in e]} s; peak device memory graph "
+          f"{[round(x['peak'] / 2 ** 30, 3) for x in g]} GiB, eager "
+          f"{[round(x['peak'] / 2 ** 30, 3) for x in e]} GiB")
+    for x in g:
+        print(f"{label}: captures (window, frames, seconds, (nodes, IF "
+              f"nodes, nodes in IF bodies)) "
+              f"{[(k, f, round(t, 3), nd) for k, f, t, nd in x['caps']]}; "
+              f"capture seconds of the run {x['capture']:.3f}")
+    break_even(label, g, e)
+    print(f"{label}: completion tier a step (tier, real entries, list "
+          f"length) {runs['tiers'][0]['tiers']}; qualifying giants a step "
+          f"{runs['tiers'][0]['giants']}")
+
+    mlabel = f"bh galaxy {dims}-D"
+    merge_steps = 400 if dims == 2 else 100
+    argv = ["--config", os.path.join(EXAMPLES, "galaxy_momentum.txt"),
+            "--steps", str(merge_steps), "--no-images", "--set",
+            "forceModel=bh", "--set", "compactEvery=50", "--set",
+            f"dimensions={dims}"]
+    mr = bh_graph_runs(None, merge_steps, mlabel, argv=argv,
+                       turns=("graph", "eager"), gated=False, tiers=False)
+    mg, me = mr["graph"][0], mr["eager"][0]
+    logs = mg["r"]["logs"]
+    print(f"{mlabel} (galaxy example with forceModel=bh compactEvery=50, "
+          f"{merge_steps} steps, no frames): graph and eager bitwise equal (state, logs), "
+          f"B3 {mg['b3']} and B5 {mg['b5']} launches in each; alive "
+          f"{logs[0]['alive']} -> {logs[-1]['alive']}; capacities "
+          f"{mg['r']['result'].capacities}; Time taken graph {mg['taken']} "
+          f"s, eager {me['taken']} s; host wall a step (captures excluded) "
+          f"graph {mg['wall']:.4f} ms, eager {me['wall']:.4f} ms; "
+          f"{len(mg['caps'])} captures, {mg['capture']:.4f} s in all "
+          f"({[round(t, 3) for _, _, t, _ in mg['caps']]}); bh_overflow at "
+          f"the log lines {[x['bh_overflow'] for x in logs]}")
+
+    if dims == 2:
+        ctext = config_text(million_config(particle_count=1 << 18))
+        cr = bh_graph_runs(ctext, steps, "bh crowded 2-D N=262144",
+                           arrays=crowded_state(1 << 18, 4, 1e6))
+        caps = cr["graph"][0]["caps"]
+        print(f"bh crowded 2-D N=262144: graph and eager bitwise equal; "
+              f"host wall a step graph "
+              f"{[round(x['wall'], 4) for x in cr['graph']]} ms, eager "
+              f"{[round(x['wall'], 4) for x in cr['eager']]} ms; completion "
+              f"tier a step {cr['tiers'][0]['tiers']}; qualifying giants a "
+              f"step {cr['tiers'][0]['giants']}; captures "
+              f"{[(k, round(t, 3), nd) for k, _, t, nd in caps]}")
+
+    state = init_scene(cfg, device=dev)
+    if dims == 2:
+        giant_tier_costs(state)
+    rcfg = driver.resolve_bh_config(cfg, state)
+    step = driver.build_step(rcfg, dev)
+    runner = driver._GraphWindows(step, state, rcfg, 0, 10, None)
+    eager = driver._EagerWindows(step, state, rcfg, 0)
+    got = {}
+    for name, r in (("graph", runner), ("eager", eager)):
+        dms, ops, _, busy, span = profile_breakdown(
+            lambda: r.advance(10, False), 1,
+            f"{label}, a 10-step {name} window", detail=True)
+        # without the profiler, which slows graph replays most: CUDA events
+        ev = time_ms(lambda: r.advance(10, False), reps=3, warm=1)
+        got[name] = (dms / 10, ops / 10, ev / 10, busy / span, span / 10)
+    (gd, gk, gw, gb, gs), (ed, ek, ew, eb, es) = got["graph"], got["eager"]
+    print(f"{label}: on the profiled window's timeline (the gaps between "
+          f"its kernels) the device idles {100 * (1 - gb):.2f}% of a graph "
+          f"window, whose span is {gs:.4f} ms a step under the profiler "
+          f"against {gw:.4f} ms by CUDA events without it, and "
+          f"{100 * (1 - eb):.2f}% of an eager one ({es:.4f} against "
+          f"{ew:.4f} ms): the timeline holds only where the two spans agree; "
+          f"a step's kernel time graph {gd:.4f} ms, eager {ed:.4f} ms (the "
+          f"profiler's sum); kernels a step graph {gk:.1f}, eager {ek:.1f}; "
+          f"1 - kernel sum / events without the profiler, signed (two "
+          f"measures, which disagree where it is negative): graph "
+          f"{100 * (1 - gd / gw):.1f}%, eager {100 * (1 - ed / ew):.1f}%")
+    runner.close()
 
 
 def kernel_name(mangled):
@@ -2597,7 +2950,9 @@ def main() -> int:
             ("31 galaxy example", lambda: phase_galaxy_example(dev)),
             ("32 million example", phase_million_example),
             ("33 scenes", lambda: phase_scenes(dev)),
-            ("33 bh compaction", phase_bh_compaction)):
+            ("33 bh compaction", phase_bh_compaction),
+            ("34 bh graph windows, 2-D", lambda: phase_bh_graphs(dev, 2)),
+            ("34 bh graph windows, 3-D", lambda: phase_bh_graphs(dev, 3))):
         t0 = time.perf_counter()
         phase()
         print(f"phase {name}: {time.perf_counter() - t0:.1f} s")

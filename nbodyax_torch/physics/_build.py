@@ -3,8 +3,9 @@
 ``nvcc`` compiles each source under ``nbodyax_torch/csrc/`` into a shared
 library with a plain C interface, loaded with ``ctypes``: ``pair_kernel.cu``
 (the all-pairs forward pass), ``pair_bwd_kernel.cu`` (its analytic
-backward pass), ``near_kernel.cu`` (the bh near field) and
-``slotpack_kernel.cu`` (the bh slot-grid pack and finest moments); the two
+backward pass), ``near_kernel.cu`` (the bh near field),
+``slotpack_kernel.cu`` (the bh slot-grid pack and finest moments) and
+``graph_cond.cu`` (CUDA-graph IF nodes for ``graph_if``); the two
 all-pairs sources share ``pair_common.cuh``. The libraries are built at
 first use into ``build/nbodyax_torch/`` beside the package, one ``nvcc`` a
 source, all started together, and keyed by a hash of every source, header
@@ -31,7 +32,7 @@ __all__ = ["load_library", "build_log", "cached_build", "SOURCES",
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(_PKG / "csrc" / name for name in (
     "pair_kernel.cu", "pair_bwd_kernel.cu", "near_kernel.cu",
-    "slotpack_kernel.cu"))
+    "slotpack_kernel.cu", "graph_cond.cu"))
 HEADERS = (_PKG / "csrc" / "pair_common.cuh",)
 BUILD_DIR = _PKG.parent / "build" / "nbodyax_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -58,9 +59,10 @@ def _nvcc() -> str:
 
 
 def _bind(fwd: ctypes.CDLL, bwd: ctypes.CDLL, near: ctypes.CDLL,
-          pack: ctypes.CDLL) -> SimpleNamespace:
+          pack: ctypes.CDLL, cond: ctypes.CDLL) -> SimpleNamespace:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     ip = ctypes.POINTER(ctypes.c_int)
+    zp = ctypes.POINTER(ctypes.c_size_t)
     fns = {}
     for lib, name, args in (
             (fwd, "nbodyax_pair_accumulators",
@@ -74,7 +76,10 @@ def _bind(fwd: ctypes.CDLL, bwd: ctypes.CDLL, near: ctypes.CDLL,
             (near, "nbodyax_near_shared_bytes", [i, i, i]),
             (pack, "nbodyax_slot_pack", [p, i, p, p, i, i, p, p]),
             (pack, "nbodyax_slot_pack_moments",
-             [p, i, p, p, i, i, i, i, p, i, p, p, p, p])):
+             [p, i, p, p, i, i, i, i, p, i, p, p, p, p]),
+            (cond, "nbodyax_if_begin", [p, p, p]),
+            (cond, "nbodyax_if_end", [p, zp]),
+            (cond, "nbodyax_capture_nodes", [p, zp])):
         fn = getattr(lib, name)
         fn.argtypes = args
         fn.restype = ctypes.c_int

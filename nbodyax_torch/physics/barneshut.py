@@ -14,14 +14,16 @@ for the model and its documented approximations. The pieces:
   their completion pass, the slot unsort, the giant-collision pass,
   ``bh_accumulators`` and the diagnostics the driver reads.
 
-Where nbodyax chooses between static budgets with ``lax.cond`` tiers
-(``_tiered_completion``), the port reads the number of crowded-cell bodies
-to the host once a call and runs the completion pass over exactly those
-bodies, or skips it. The same read carries the number of bodies that
-qualify for the giant pass, which is skipped when there are none. So a
-call makes one host read, and one more (``torch.nonzero``) on a step with
-crowded cells. The results are those of nbodyax's tiers: fill entries of
-its static lists write a discarded row.
+The step reads nothing back to the host, so a CUDA graph can hold it. As
+in nbodyax, the crowded-cell bodies go into a list of static length
+(``_completion_list``, nbodyax's ``_completion_slice``) whose fill entries
+``n`` write a discarded row n, and the completion passes run under tiers
+(``_Tiers``, nbodyax's ``_tiered``): nothing, the first ``_COMP_TIER``
+entries, or the whole list. The giant pass takes a static top-B list with
+the entries that do not qualify masked to mass 0, under tiers of
+``_GIANT_TIER`` and B entries. Each tier is a ``graph_if.run_if`` branch:
+a CUDA-graph IF node under a capture, the predicate's value elsewhere.
+One tier decision a step serves every completion pass.
 
 ``near_kernel="auto"`` (the ``bhPallas`` knob) runs B3 and B5 (or B4)
 through their wrappers: the kernels on a CUDA tensor, their plain versions
@@ -47,6 +49,7 @@ from nbodyax_torch.physics.fmm import (_annulus_force_bodies,
                                        _annulus_force_cells, _far_force,
                                        _far_force_cells, _fmm_local_table,
                                        _l2p, _l2p_slots, _level_grids)
+from nbodyax_torch.physics.graph_if import run_if
 from nbodyax_torch.physics.near_kernel import (_lanes, slots_near,
                                                slots_near_reference)
 from nbodyax_torch.physics.pairwise import (PairAccumulators,
@@ -87,7 +90,8 @@ def auto_neighbor_k(n: int, levels: int, ring: int = 1, dim: int = 2,
 
 _SLOTS_PREFERRED_N = 1_500_000   # rows/slots crossover of the plain engines
 _CI_CAP = 32                      # floor of the per-cell i-slot budget
-_COMP_TIER = 1024                 # pick_levels' completion-budget granule
+_COMP_TIER = 1024                 # the completion list's small tier
+_GIANT_TIER = 64                  # the giant list's small tier
 
 
 def slot_cap(n: int, ncells: int) -> int:
@@ -132,13 +136,50 @@ def _over_slots(s_cell, starts, ncells: int, cap: int):
     return (srank >= cap) & (s_cell < ncells)
 
 
-def _completion_list(over, n_over: int, n: int, comp_cap: int):
-    """Sorted positions of the completion pass: the first
-    ``_completion_cap`` crowded bodies, as nbodyax's static list holds
-    them; None when there are none."""
-    if not n_over:
-        return None
-    return torch.nonzero(over)[:_completion_cap(n, comp_cap), 0]
+def _channels(mode: str) -> tuple:
+    """The accumulator fields a collision mode fills (the rest keep the
+    identity, and may share its storage)."""
+    return ("force",) + {"reference": ("gained_mass", "gained_radius",
+                                       "died"),
+                         "momentum": ("best_mass", "parent"),
+                         "elastic": ("dv",)}.get(mode, ())
+
+
+def _completion_list(over, n: int, comp_cap: int):
+    """nbodyax's ``_completion_slice``: the sorted positions of the
+    crowded bodies in order, in a list of the static length
+    ``_completion_cap``, the rest filled with ``n``. Bodies past the budget
+    are dropped (``bh_health`` counts them)."""
+    return torch.nonzero_static(over, size=_completion_cap(n, comp_cap),
+                                fill_value=n)[:, 0]
+
+
+def _completion_rows(order, psx, n: int):
+    """(body index, row written) of completion-list entries ``psx``: a
+    fill entry ``n`` reads a real body and writes the discarded row n
+    (nbodyax's ``osidx``)."""
+    gi = order[torch.clamp(psx, max=n - 1)]
+    return gi, torch.where(psx < n, gi, n)
+
+
+class _Tiers:
+    """nbodyax's ``_tiered`` over one completion list ``ps``: ``run(body)``
+    calls ``body(psx)`` on nothing when ``ps`` holds no real entry, on its
+    first ``_COMP_TIER`` entries when the real ones fit in them (they are
+    a prefix), else on the whole list. The decision stays on the device,
+    and every completion pass of a step shares it."""
+
+    def __init__(self, ps, n: int):
+        self.ps = ps
+        real = (ps < n).sum()
+        small = min(_COMP_TIER, ps.shape[0])
+        self.tiers = [(small, (real > 0) & (real <= small))]
+        if ps.shape[0] > small:
+            self.tiers.append((ps.shape[0], real > small))
+
+    def run(self, body) -> None:
+        for size, pred in self.tiers:
+            run_if(pred, lambda size=size: body(self.ps[:size]))
 
 
 def _near_field(i_pos, i_vel, i_mass, i_radius, i_ids, pos, vel, mass,
@@ -285,9 +326,9 @@ def _near_field_cells(pos, vel, mass, radius, ext, levels: int, ring: int,
     B3 when ``kernel``), unsorted into body order; the rest of a crowded
     cell through the per-body completion pass (``_near_field``, windows of
     (2 ring + 1) S a row for slots, ``k`` for rows), up to the completion
-    budget. ``far_slot_lanes`` ([nslots, dim], per-slot far forces) rides
-    the same unsort. ``_completion``: ``(ps,)``, the caller's completion
-    list (``_completion_list``), so a step lists the crowded bodies once."""
+    budget, under the tiers of ``_Tiers``. ``far_slot_lanes`` ([nslots,
+    dim], per-slot far forces) rides the same unsort. ``_completion``: the
+    caller's ``_Tiers``, so a step lists the crowded bodies once."""
     eps2 = float(np.float32(eps2))
     growth_rate = float(np.float32(growth_rate))
     use_slots = near == "slots"
@@ -321,8 +362,11 @@ def _near_field_cells(pos, vel, mass, radius, ext, levels: int, ring: int,
 
     valid, slot_idx = _slot_unsort_idx(pos, mass, ext, g, order, starts,
                                        s_cell, ncells, ci_cap, nslots)
+    # one more row, n: the completion's fill entries write it, and it goes
+    valid = F.pad(valid, (0, 1))
+    slot_idx = F.pad(slot_idx, (0, 1), value=nslots)
     row = packed[slot_idx]
-    ids = torch.arange(n, dtype=torch.int32, device=pos.device)
+    ids = torch.arange(n + 1, dtype=torch.int32, device=pos.device)
     zero = torch.zeros((), dtype=torch.float32, device=pos.device)
     force = row[:, 0:dim]
     if far_slot_lanes is not None:
@@ -345,19 +389,22 @@ def _near_field_cells(pos, vel, mass, radius, ext, levels: int, ring: int,
                                           row[:, dim:2 * dim], zero))
 
     if _completion is None:
-        over = _over_slots(s_cell, starts, ncells, ci_cap)
-        _completion = (_completion_list(over, int(over.sum()), n, comp_cap),)
-    (ps,) = _completion
-    if ps is not None:
-        gi = order[ps]
-        row_k = (2 * ring + 1) * S if use_slots else k
+        _completion = _Tiers(_completion_list(
+            _over_slots(s_cell, starts, ncells, ci_cap), n, comp_cap), n)
+    row_k = (2 * ring + 1) * S if use_slots else k
+
+    def complete(psx):
+        gi, osidx = _completion_rows(order, psx, n)
         oacc = _near_field(pos[gi], vel[gi], mass[gi], radius[gi], gi, pos,
                            vel, mass, radius, ext, levels, ring, eps2,
-                           growth_rate, mode, row_k, min(gi.shape[0], chunk),
+                           growth_rate, mode, row_k, min(psx.shape[0], chunk),
                            _structure=structure)
-        out = PairAccumulators(*(o.index_put((gi,), v.to(o.dtype))
-                                 for o, v in zip(out, oacc)))
-    return out
+        for name in _channels(mode):
+            o = getattr(out, name)
+            o.index_put_((osidx,), getattr(oacc, name).to(o.dtype))
+
+    _completion.run(complete)
+    return PairAccumulators(*(o[:n] for o in out))
 
 
 def _giant_key(mass, radius, ext, levels: int, ring: int):
@@ -373,51 +420,92 @@ def _giant_key(mass, radius, ext, levels: int, ring: int):
 
 def giant_collision_accumulators(pos, vel, mass, radius, *, ext, levels: int,
                                  ring: int, growth_rate, mode: str,
-                                 n_giants: int, chunk: int = 16384,
-                                 n_qualified=None) -> PairAccumulators:
+                                 n_giants: int, chunk: int = 16384
+                                 ) -> PairAccumulators:
     """Exact COLLISION channels (no gravity) for the ``n_giants``
     largest-radius live bodies among those with radius > ring * cell / 2,
     against every body, over the pairs the near window does NOT cover
     (finest-cell Chebyshev distance > ring): pass 1 gives every body its
     channels from the giants, pass 2 each giant its channels from the
     non-giant bodies. Returns full-length accumulators (identity rows for
-    untouched bodies).
+    untouched bodies). See ``_giant_pass`` for the list and its tiers."""
+    ids = torch.arange(pos.shape[0], dtype=torch.int32, device=pos.device)
+    out = PairAccumulators(*(t.clone() for t in empty_accumulators(
+        ids, dim=pos.shape[-1])))
+    _giant_pass(pos, vel, mass, radius, ext=ext, levels=levels, ring=ring,
+                growth_rate=growth_rate, mode=mode, n_giants=n_giants,
+                chunk=chunk, into=out)
+    return out
 
-    The giant list is nbodyax's ``lax.top_k`` order (largest radius first,
-    ties to the lower index), from a stable sort. Unlike nbodyax, the list
-    length is clamped to n, so n < 8 works. Only qualifying bodies enter
-    the passes (nbodyax masks the rest to mass 0, which adds nothing);
-    ``n_qualified`` passes their host count when the caller has read it."""
+
+def _giant_pass(pos, vel, mass, radius, *, ext, levels: int, ring: int,
+                growth_rate, mode: str, n_giants: int, chunk: int,
+                into: PairAccumulators) -> None:
+    """Combine the giant-collision channels into ``into``, in place.
+
+    The giant list is nbodyax's: the top ``B = min(n, max(8, n_giants))``
+    keys in ``lax.top_k`` order (largest radius first, ties to the lower
+    index, from a stable sort), the entries that do not qualify masked to
+    mass 0, which adds nothing. Unlike nbodyax, B is clamped to n, so
+    n < 8 works. The pass runs under tiers on the number of qualifying
+    bodies: nothing when none qualifies, the first ``_GIANT_TIER`` entries
+    when they fit, else all B, so a run with a handful of giants does not
+    test every body against B of them."""
+    n = pos.shape[0]
+    key = _giant_key(mass, radius, ext, levels, ring)
+    qualified = (key > 0).sum()
+    B = min(n, max(8, n_giants))
+    lo = 0
+    for t in [t for t in (_GIANT_TIER,) if t < B] + [B]:
+        pred = (qualified > lo) & (qualified <= t) if t < B else (
+            qualified > lo)
+        run_if(pred, lambda t=t: _giant_tier(
+            pos, vel, mass, radius, key, t, ext=ext, levels=levels,
+            ring=ring, growth_rate=growth_rate, mode=mode, chunk=chunk,
+            into=into))
+        lo = t
+
+
+def _giant_list(key, count: int):
+    """The top ``count`` entries of ``key`` in ``lax.top_k`` order (largest
+    first, ties to the lower index) and the mask of those that qualify
+    (key > 0)."""
+    topi = torch.sort(-key, stable=True).indices[:count]
+    return topi, key[topi] > 0
+
+
+def _giant_tier(pos, vel, mass, radius, key, count: int, *, ext,
+                levels: int, ring: int, growth_rate, mode: str, chunk: int,
+                into: PairAccumulators) -> None:
+    """One tier of ``_giant_pass``: the top ``count`` list."""
     n = pos.shape[0]
     dim = pos.shape[-1]
     dev = pos.device
     g = 1 << levels
     ids = torch.arange(n, dtype=torch.int32, device=dev)
-    key = _giant_key(mass, radius, ext, levels, ring)
-    if n_qualified is None:
-        n_qualified = int((key > 0).sum())
-    count = min(n, max(8, n_giants), int(n_qualified))
-    if count == 0:
-        return empty_accumulators(ids, dim=dim)
-    topi = torch.sort(-key, stable=True).indices[:count]
-    pg, vg, mg, rg = pos[topi], vel[topi], mass[topi], radius[topi]
+    topi, gmask = _giant_list(key, count)
+    pg, vg, rg = pos[topi], vel[topi], radius[topi]
+    mg = torch.where(gmask, mass[topi], 0.0)   # masked: dead, no pairs
     gids = topi.to(torch.int32)
     cells = torch.stack(_cells(pos, ext, g), -1)
     gcells = cells[topi]
-    is_giant = torch.zeros((n,), dtype=torch.bool, device=dev)
-    is_giant[topi] = True
+    safe = torch.where(gmask, topi, n)         # masked rows go to row n
+    is_giant = torch.zeros((n + 1,), dtype=torch.bool,
+                           device=dev).index_fill_(0, safe, True)[:n]
     gr = float(np.float32(growth_rate))
     c = max(8, min(n, chunk))
+    # pass 1's rows are independent: chunks of about 2^22 pairs
+    c1 = max(c, min(n, (1 << 22) // count))
 
     def uncovered(ci, cj):
         return (ci[:, None, :] - cj[None, :, :]).abs().amax(-1) > ring
 
     kw = dict(eps2=0.0, growth_rate=gr, mode=mode, with_force=False)
     acc1 = [pair_accumulators_chunk(
-        pos[s:s + c], vel[s:s + c], mass[s:s + c], radius[s:s + c],
-        ids[s:s + c], pg, vg, mg, rg, gids,
-        pair_mask=uncovered(cells[s:s + c], gcells), **kw)
-        for s in range(0, n, c)]
+        pos[s:s + c1], vel[s:s + c1], mass[s:s + c1], radius[s:s + c1],
+        ids[s:s + c1], pg, vg, mg, rg, gids,
+        pair_mask=uncovered(cells[s:s + c1], gcells), **kw)
+        for s in range(0, n, c1)]
     acc1 = PairAccumulators(*(torch.cat(xs) for xs in zip(*acc1)))
     acc2 = None
     for s in range(0, n, c):
@@ -426,9 +514,13 @@ def giant_collision_accumulators(pos, vel, mass, radius, *, ext, levels: int,
             pg, vg, mg, rg, gids, pos[s:s + c], vel[s:s + c], mass[s:s + c],
             radius[s:s + c], ids[s:s + c], pair_mask=pm, **kw)
         acc2 = part if acc2 is None else combine_accumulators(acc2, part)
-    full2 = PairAccumulators(*(f.index_put((topi,), v) for f, v in zip(
-        empty_accumulators(ids, dim=dim), acc2)))
-    return combine_accumulators(acc1, full2)
+    full2 = empty_accumulators(
+        torch.arange(n + 1, dtype=torch.int32, device=dev), dim=dim)
+    full2 = PairAccumulators(*(f.index_put((safe,), v)[:n]
+                               for f, v in zip(full2, acc2)))
+    new = combine_accumulators(into, combine_accumulators(acc1, full2))
+    for o, v in zip(into, new):
+        o.copy_(v)
 
 
 def _bh_cells_eval(pos, vel, mass, radius, *, eps2, growth_rate, mode: str,
@@ -452,13 +544,7 @@ def _bh_cells_eval(pos, vel, mass, radius, *, eps2, growth_rate, mode: str,
     c = min(chunk, n)
     cap = ci_cap or slot_cap(n, ncells)
     over = _over_slots(s_cell, starts, ncells, cap)
-    giants = bool(n_giants) and mode != "none"
-    # the call's one host read: crowded-cell bodies and giant candidates
-    counts = [over.sum()]
-    if giants:
-        counts.append((_giant_key(mass, radius, ext, levels, ring) > 0).sum())
-    counts = torch.stack(counts).tolist()
-    ps = _completion_list(over, counts[0], n, comp_cap)
+    tiers = _Tiers(_completion_list(over, n, comp_cap), n)
 
     S_full = max(neighbor_k, cap)
     fslot = finest_mom = None
@@ -493,13 +579,12 @@ def _bh_cells_eval(pos, vel, mass, radius, *, eps2, growth_rate, mode: str,
         pos, vel, mass, radius, ext, levels, ring, eps2, growth_rate, mode,
         neighbor_k, ci_cap=cap, chunk=c, _structure=structure, near=near,
         comp_cap=comp_cap, kernel=kernel, _fslot=fslot,
-        far_slot_lanes=far_slot_lanes, _completion=(ps,))
+        far_slot_lanes=far_slot_lanes, _completion=tiers)
 
-    gi = order_idx[ps] if ps is not None else None
     zero = torch.zeros((), dtype=torch.float32, device=pos.device)
     if far == "fmm":
         if far_slot_lanes is not None:
-            far_v = torch.zeros((n, dim), dtype=torch.float32,
+            far_v = torch.zeros((n + 1, dim), dtype=torch.float32,
                                 device=pos.device)
         else:
             far_all = _l2p(local_tab, pos, ext, levels, dim)
@@ -510,14 +595,16 @@ def _bh_cells_eval(pos, vel, mass, radius, *, eps2, growth_rate, mode: str,
                                               starts, s_cell, ncells, cap,
                                               aslots.shape[0])
             a_pad = torch.cat([aslots, aslots.new_zeros((1, dim))])
-            far_v = (torch.where(a_valid[:, None], a_pad[a_idx], zero)
-                     + torch.where(keep[:, None], far_all, zero))
-        if gi is not None:
+            far_v = F.pad(torch.where(a_valid[:, None], a_pad[a_idx], zero)
+                          + torch.where(keep[:, None], far_all, zero),
+                          (0, 0, 0, 1))
+
+        def complete(psx):
             # crowded-cell bodies take their whole far field here
-            far_v[gi] = (_annulus_force_bodies(pos[gi], packed_finest, ext,
-                                               levels, ring, ring + 1, eps2,
-                                               2)
-                         + _l2p(local_tab, pos[gi], ext, levels, dim))
+            gi, osidx = _completion_rows(order_idx, psx, n)
+            far_v.index_put_((osidx,), _annulus_force_bodies(
+                pos[gi], packed_finest, ext, levels, ring, ring + 1, eps2, 2)
+                + _l2p(local_tab, pos[gi], ext, levels, dim))
     else:
         d_grids = _level_grids(pos, mass, ext, levels, order,
                                finest=finest_mom if order >= 2 else None)
@@ -527,20 +614,22 @@ def _bh_cells_eval(pos, vel, mass, radius, *, eps2, growth_rate, mode: str,
         far_v = torch.zeros((n + 1, dim), dtype=torch.float32,
                             device=pos.device)
         far_v[fsidx] = fslots
-        far_v = far_v[:n]
-        if gi is not None:
-            far_v[gi] = _far_force(pos[gi], pos, mass, ext, levels, ring,
-                                   eps2, order, grids=d_grids)
 
+        def complete(psx):
+            gi, osidx = _completion_rows(order_idx, psx, n)
+            far_v.index_put_((osidx,), _far_force(
+                pos[gi], pos, mass, ext, levels, ring, eps2, order,
+                grids=d_grids))
+
+    tiers.run(complete)
     ids = torch.arange(n, dtype=torch.int32, device=pos.device)
     far_acc = empty_accumulators(ids, dim=dim)._replace(
-        force=torch.where(alive[:, None], far_v, zero))
+        force=torch.where(alive[:, None], far_v[:n], zero))
     out = combine_accumulators(near_acc, far_acc)
-    if giants:
-        out = combine_accumulators(out, giant_collision_accumulators(
-            pos, vel, mass, radius, ext=ext, levels=levels, ring=ring,
-            growth_rate=growth_rate, mode=mode, n_giants=n_giants,
-            chunk=max(chunk, 4096), n_qualified=counts[1]))
+    if n_giants and mode != "none":
+        _giant_pass(pos, vel, mass, radius, ext=ext, levels=levels,
+                    ring=ring, growth_rate=growth_rate, mode=mode,
+                    n_giants=n_giants, chunk=max(chunk, 4096), into=out)
     return out
 
 

@@ -8,7 +8,10 @@ the post-step state, multi-frame windows byte-equal to a stride-1 run, a
 run with no cadence, and the energy cadence; plus ``potential_energy``
 against nbodyax's in 2-D and 3-D and ``dt_mean`` against nbodyax's logged
 value. On the CPU every window runs the step eagerly; the card's graph
-windows are held to this eager runner in tests/test_torch_graphs.py.
+windows are held to this eager runner in tests/test_torch_graphs.py and,
+for ``forceModel=bh``, tests/test_torch_graphs_bh.py. The runner choice:
+graph windows on a card for both force models, the eager loop on the CPU
+and under ``_eager``.
 """
 
 import json
@@ -25,6 +28,7 @@ from nbodyax.config import SimConfig as JaxConfig  # noqa: E402
 from nbodyax.driver import run_simulation as jax_run  # noqa: E402
 from nbodyax_torch import metrics as tmetrics  # noqa: E402
 from nbodyax_torch.config import SimConfig  # noqa: E402
+from nbodyax_torch import driver  # noqa: E402
 from nbodyax_torch.driver import _Schedule, run_simulation  # noqa: E402
 from nbodyax_torch.physics.step import PhysicsParams, make_step  # noqa: E402
 from nbodyax_torch.render import render_state  # noqa: E402
@@ -229,3 +233,40 @@ def test_profile_writes_a_trace(tmp_path):
     with open(tmp_path / "prof" / "trace.json") as f:
         trace = json.load(f)
     assert trace["traceEvents"]
+
+
+@pytest.mark.parametrize("device,eager,graphs", [
+    ("cuda", False, True), ("cuda", True, False), ("cpu", False, False),
+    ("cpu", True, False)])
+def test_runner_choice(device, eager, graphs):
+    """Graph windows on a card, whatever the force model; the eager loop
+    on the CPU and under the private ``_eager`` switch."""
+    want = driver._GraphWindows if graphs else driver._EagerWindows
+    assert driver._runner_class(torch.device(device), eager) is want
+
+
+def test_bh_on_the_cpu_runs_eager_windows(tmp_path, monkeypatch):
+    """A bh run on the CPU builds the eager runner, and only it."""
+    built = []
+
+    def refuse(*a, **k):
+        raise AssertionError("a graph runner on the CPU")
+
+    real = driver._EagerWindows.__init__
+
+    def record(self, *a, **k):
+        built.append(1)
+        real(self, *a, **k)
+
+    monkeypatch.setattr(driver._GraphWindows, "__init__", refuse)
+    monkeypatch.setattr(driver._EagerWindows, "__init__", record)
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        cfg = base(tmp_path, particle_count=64, total_iterations=4,
+                   log_every=2, force_model="bh")
+        res = run_simulation(cfg, device="cpu", quiet=True)
+    finally:
+        torch.set_num_threads(old)
+    assert res.state.step == 4 and built == [1]
+    assert [l["bh_overflow"] for l in logs(cfg)] == [0, 0]

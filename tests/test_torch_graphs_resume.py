@@ -9,8 +9,8 @@ launch a step counted by replays, and each old runner's graphs must be
 destroyed at its close and their memory handed back to the card. A run
 resumed from a checkpoint, and an autoResume run whose fault strikes
 between two replays, must end on the straight run's state bit for bit; so
-must a resumed ``forceModel=bh`` run, which steps eagerly. A failed capture is
-not retried.
+must a resumed ``forceModel=bh`` run, through graph windows as well. A failed
+capture is not retried.
 
 These tests need a CUDA card and skip without one. The file imports
 neither JAX nor nbodyax:
@@ -192,7 +192,7 @@ def test_a_failed_capture_is_not_retried(cuda, tmp_path, monkeypatch):
 
 
 def test_bh_resume_equals_straight_run(cuda, tmp_path):
-    """forceModel=bh with every knob auto (eager windows on the card):
+    """forceModel=bh with every knob auto (graph windows on the card):
     the resumed run adopts the checkpoint's knobs and ends on the straight
     run's state bit for bit, across a compaction."""
     kw = dict(force_model="bh", save_images=False, checkpoint_every=20)
