@@ -174,7 +174,7 @@ Phases, each of which exits non-zero on failure:
     its own, the completion tier and the qualifying giants of each step;
     the galaxy example with ``forceModel=bh compactEvery=50`` (in 2-D it
     merges and compacts, in 3-D bhAdapt retunes its knobs: each a new
-    capture), 400 steps in 2-D and 100 in 3-D, graph against eager:
+    capture), 400 steps in 2-D and 50 in 3-D, graph against eager:
     ``Time taken``, captures and their seconds; in 2-D a crowded N =
     262,144 state (a quarter of the bodies in one patch: the full
     completion tier, then giants) graph against eager, and the giant
@@ -182,13 +182,30 @@ Phases, each of which exits non-zero on failure:
     against eager: the device's idle share from the gaps between its
     kernels with the profiled span beside the step by CUDA events without
     the profiler (the profiler slows a graph of many small kernels), kernel
-    time and kernels a step. Each of phases 28-34 prints its seconds.
+    time and kernels a step;
+35. the benchmark runners at full size, each in its own process:
+    ``python -m nbodyax_torch.bench`` (N = 1,048,576 through one-step graph
+    replays, the median of 5 with its spread) and ``python -m
+    nbodyax_torch.bench_suite``'s six configs (``bench/suite.py``'s sizes:
+    the oracle match at N = 1,024, elastic conservation at 16,384, merges
+    against the oracle at 131,072, 1M exact, the 4M galaxy under bh and
+    exact, the 1M uniform scene under bh), each line printed and gated
+    (oracle match, exact mass and every body kept, merge agreement 1.0,
+    finite, positive rates, the path's kernels launched); config 6's
+    scene in an untimed eager run: each step's tier and giants, and one
+    step's heaviest kernels; then
+    examples/shooting_gradient_torch.py through B1 and B2, miss^2 below 1%
+    of its start; then ``--debug-nans``: an overflowing state exits
+    non-zero with ``FloatingPointError`` at step 19, and the default scene
+    for 20 steps with frames is bitwise the same with and without it. Each
+    of phases 28-35 prints its seconds.
 
 The line before the last is a JSON object describing each kernel (the
 wrapper call's CUDA-event time ``ms``, the kernel's own device time by
 the profiler ``device_ms``, its plain version's time, its bound against
-the H100's peak FP32 rate or memory rate, and one PyTorch call's time
-where there is one); the last
+the H100's peak FP32 rate or memory rate, one PyTorch call's time where
+there is one, and its largest error against its plain version, absolute
+and relative to the largest magnitude of its channel); the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside
 a checkout, it exits non-zero and prints no result.
 """
@@ -285,6 +302,16 @@ def equivalence_errors(a, b, mode, dv_gate=1e-5):
     return err, ok
 
 
+def abs_rel_err(got, want):
+    """(largest absolute error, largest relative error): the second is,
+    for each channel (the last axis), the channel's largest absolute error
+    over its largest magnitude in ``want``, the largest over channels."""
+    c = got.shape[-1]
+    d = (got - want).abs().reshape(-1, c).amax(0)
+    scale = want.abs().reshape(-1, c).amax(0).clamp(min=1e-30)
+    return float(d.max()), float((d / scale).max())
+
+
 def bound_ms(flops=0.0, nbytes=0.0):
     """The least time the card could take: (ms, "operations" or "bytes")."""
     t_ops = flops / PEAK_FP32_FLOPS * 1e3
@@ -367,14 +394,15 @@ def phase_kernel_vs_plain(dev, states, dims=2):
     reference and elastic at eps 25 in 3-D), the force within FORCE_GATE
     of the largest, two calls bitwise equal, ids past 2^30, offset calls
     over split j halves, and in 2-D a momentum tie across splits. Returns
-    the largest absolute error of channels 0-5 on the main path's call."""
+    the largest absolute and relative errors (``abs_rel_err``) of channels
+    0-5 on the main path's call."""
     from nbodyax_torch.physics.kernels import (MODES, body_features,
                                                decode_raw,
                                                tile_accumulators_raw,
                                                tile_accumulators_raw_reference)
     from nbodyax_torch.physics.pairwise import combine_accumulators
 
-    max_abs_err = None
+    errs = None
     label = "kernel" if dims == 2 else "3-D kernel"
     dv_gate = 1e-5 if dims == 2 else DV_GATE_3D
     cases = [(mode, 0.0) for mode in MODES]
@@ -418,8 +446,7 @@ def phase_kernel_vs_plain(dev, states, dims=2):
                 check(same, f"{label} N={n} {mode} with large ids differs")
             if arrays is states[-1] and (mode, eps) == ("reference", 0.0):
                 # the main path's call: raw channels 0-5 of the live rows
-                max_abs_err = float((rk[alive, :6] - rp[alive, :6])
-                                    .abs().max())
+                errs = abs_rel_err(rk[alive, :6], rp[alive, :6])
         # offset calls: an i range against the two j halves, combined,
         # equals the full pass (the building block of split and ring paths)
         i0, i1, half = n // 4, n // 2, n // 2
@@ -447,7 +474,7 @@ def phase_kernel_vs_plain(dev, states, dims=2):
                       f"mode={mode}: {err}")
     if dims == 2:
         phase_tie_across_splits(dev, states[-1][0].shape[0])
-    return max_abs_err
+    return errs
 
 
 def phase_golden(dev, default_cfg):
@@ -580,15 +607,13 @@ def same_run(a, b, label):
     check(ra is not None and rb is not None, f"{label}: a run did not end")
     same = all(torch.equal(x, y) for x, y in zip(ra.state[:4], rb.state[:4]))
     same &= torch.equal(ra.state.sim_time, rb.state.sim_time)
-    check(same, f"{label}: final states differ between graph and eager")
+    check(same, f"{label}: final states differ")
 
     def strip(logs):
         return [{k: v for k, v in rec.items() if k not in TIMING_KEYS}
                 for rec in logs]
-    check(strip(a["logs"]) == strip(b["logs"]),
-          f"{label}: log values differ between graph and eager")
-    check(a["frames"] == b["frames"],
-          f"{label}: frames differ between graph and eager")
+    check(strip(a["logs"]) == strip(b["logs"]), f"{label}: log values differ")
+    check(a["frames"] == b["frames"], f"{label}: frames differ")
     check(ra.windows == rb.windows, f"{label}: window counts differ")
     return (f"state, {len(a['logs'])} log lines and {len(a['frames'])} "
             f"frames bitwise equal")
@@ -1140,8 +1165,9 @@ def cotangent(n, dev):
 
 def phase_bwd_vs_plain(dev, states, dims=2):
     """B2 against its plain version on ``states`` (the last is the main
-    path's scene) in ``dims`` dimensions. Returns the largest absolute
-    error on the main path's scene in reference mode."""
+    path's scene) in ``dims`` dimensions. Returns the largest absolute and
+    relative errors (``abs_rel_err``, both operands' gradients) on the main
+    path's scene in reference mode."""
     from nbodyax_torch.physics.kernels import (MODES, body_features,
                                                tile_accumulators_raw)
     from nbodyax_torch.physics.kernels_bwd import (raw_backward,
@@ -1152,7 +1178,7 @@ def phase_bwd_vs_plain(dev, states, dims=2):
         return (raw_backward(fi, fj, i0, j0, par, gi, **kw),
                 raw_backward_reference(fi, fj, i0, j0, par, gi, **kw))
 
-    max_abs_err = None
+    errs = None
     cases = [(mode, 0.0) for mode in MODES] + [("elastic", 5.0)]
     label = "backward kernel" + (" (3-D)" if dims == 3 else "")
     for arrays in states:
@@ -1177,8 +1203,7 @@ def phase_bwd_vs_plain(dev, states, dims=2):
                   f"bitwise equal: {same}")
             check(same, f"{label} N={n} {mode}: calls differ")
             if arrays is states[-1] and (mode, eps) == ("reference", 0.0):
-                max_abs_err = max(float((a - b).abs().max())
-                                  for a, b in zip(got, want))
+                errs = abs_rel_err(torch.cat(got), torch.cat(want))
         # an i range against the two j halves: each call matches the plain
         # version, and the halves' d_feats_i sum to the full call's
         i0, i1, half = n // 4, n // 2, n // 2
@@ -1198,7 +1223,7 @@ def phase_bwd_vs_plain(dev, states, dims=2):
                   f"{err:.3e}")
             check(err < BWD_GATE, f"backward halves disagree with the full "
                   f"call at N={n} mode={mode}: {err}")
-    return max_abs_err
+    return errs
 
 
 def grad_config(integrator, dims=2):
@@ -1450,11 +1475,11 @@ def phase_slotpack(dev, arrays_1m, levels=8, S=40, dims=2):
     """B5 (and B4) against their plain versions: rows bitwise, moments at
     2e-6 of max(per-channel scale, 1), on the N = 1M scene and on a
     crowded state; in 3-D with rows of 7 and, with velocities, of 10
-    floats, and 10 moments. Returns the largest absolute moment error (B5)
-    and row error (B4) seen."""
+    floats, and 10 moments. Returns the largest absolute and relative
+    (``abs_rel_err``) moment errors (B5) and row errors (B4) seen."""
     from nbodyax_torch.physics.slotpack_kernel import (
         build_slot_grid_reference, finest_moments_reference, pack_slots)
-    worst = worst_rows = 0.0
+    worst = worst_rows = (0.0, 0.0)
     tag = "" if dims == 2 else "3-D "
     cases = [(f"{tag}{name}", arrays, need_vel)
              for name, arrays in (("scene N=1M", arrays_1m),
@@ -1478,8 +1503,9 @@ def phase_slotpack(dev, arrays_1m, levels=8, S=40, dims=2):
               f"B5 moments have shape {tuple(mom_k.shape)} ({name})")
         scale = mom_p.abs().amax(0).clamp(min=1.0)
         err = ((mom_k - mom_p).abs().amax(0) / scale).max().item()
-        worst = max(worst, float((mom_k - mom_p).abs().max()))
-        worst_rows = max(worst_rows, float((rows_b4 - rows_p).abs().max()))
+        worst = tuple(map(max, worst, abs_rel_err(mom_k, mom_p)))
+        worst_rows = tuple(map(max, worst_rows,
+                               abs_rel_err(rows_b4, rows_p)))
         print(f"slot pack {name} L={L}: B4/B5 rows bitwise equal to the "
               f"gather (max cell occupancy {occ}); B5's {mom_k.shape[1]} "
               f"moments {err:.3e} of the per-channel scale (gate "
@@ -1492,7 +1518,7 @@ def near_compare(fslot, mode, eps2, g, ring, ci, dim=2):
     """B3 against its plain version at every live i slot: float channels
     relative to the channel's largest value, id and flag channels exact,
     and a second call bitwise equal to the first. Returns (errors, passed,
-    largest absolute error)."""
+    the force's largest absolute and relative errors)."""
     from nbodyax_torch.physics.near_kernel import (slots_near,
                                                    slots_near_reference)
     kw = dict(mode=mode, eps2=eps2, growth=0.1, g=g, ring=ring, ci=ci,
@@ -1527,14 +1553,14 @@ def near_compare(fslot, mode, eps2, g, ring, ci, dim=2):
         err[f"ch{c}_exact"] = same
         ok &= same
     fin = torch.isfinite(p[:, :dim]).all(1)
-    return err, ok, float((k[fin, :dim] - p[fin, :dim]).abs().max())
+    return err, ok, abs_rel_err(k[fin, :dim], p[fin, :dim])
 
 
 def phase_near(dev, arrays_1m):
     """B3 against its plain version in all four modes at eps 0 and 100 on
     a crowded N = 65,536 state (dead body, grid edges, a cell far past the
     slot budget), and on the N = 1M scene in the main path's mode. Returns
-    the largest absolute force error on the 1M scene."""
+    the largest absolute and relative force errors on the 1M scene."""
     from nbodyax_torch.physics.barneshut import slot_cap
     from nbodyax_torch.physics.slotpack_kernel import pack_slots
     for mode in ("reference", "momentum", "elastic", "none"):
@@ -2074,8 +2100,8 @@ def phase_near_3d(dev, arrays_1m):
     cells, grid faces, a cell far past the slot budget) with every third
     cell's slot 1 made a dead body after the pack, so that dead slots sit
     between live ones; two calls bitwise equal; then the 1M 3-D scene's
-    grid in the main path's mode. Returns the largest absolute force error
-    on the 1M scene."""
+    grid in the main path's mode. Returns the largest absolute and
+    relative force errors on the 1M scene."""
     from nbodyax_torch.physics.slotpack_kernel import pack_slots
     levels, S, ci = 3, BH3D_S, BH3D_CI
     g = 1 << levels
@@ -2720,7 +2746,7 @@ def phase_bh_graphs(dev, dims):
     runner in turns, and the run length at which the graphs break even;
     examples/galaxy_momentum.txt with forceModel=bh and compactEvery=50
     (in 2-D it merges and compacts, in 3-D bhAdapt retunes its knobs: each
-    a new capture), cut to 400 steps in 2-D and 100 in 3-D, graph against
+    a new capture), cut to 400 steps in 2-D and 50 in 3-D, graph against
     eager; in 2-D also a crowded N = 262,144 state (a
     quarter of the bodies in one patch) through the driver, graph against
     eager, and the giant tiers' cost; and a profiled 10-step graph window
@@ -2752,7 +2778,7 @@ def phase_bh_graphs(dev, dims):
           f"{runs['tiers'][0]['giants']}")
 
     mlabel = f"bh galaxy {dims}-D"
-    merge_steps = 400 if dims == 2 else 100
+    merge_steps = 400 if dims == 2 else 50
     argv = ["--config", os.path.join(EXAMPLES, "galaxy_momentum.txt"),
             "--steps", str(merge_steps), "--no-images", "--set",
             "forceModel=bh", "--set", "compactEvery=50", "--set",
@@ -2813,6 +2839,147 @@ def phase_bh_graphs(dev, dims):
           f"measures, which disagree where it is negative): graph "
           f"{100 * (1 - gd / gw):.1f}%, eager {100 * (1 - ed / ew):.1f}%")
     runner.close()
+
+
+def runner_lines(module, timeout):
+    """``python -m module`` from the checkout in a process of its own:
+    (its JSON lines, its wall seconds). Fails on a non-zero exit."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", module], cwd=HERE,
+                       capture_output=True, text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    check(r.returncode == 0, f"{module} exited {r.returncode}: "
+                             f"{r.stderr[-3000:]}")
+    return [json.loads(l) for l in r.stdout.splitlines()
+            if l.startswith("{")], wall
+
+
+def phase_runners():
+    """The benchmark runners at full size, each in its own process:
+    ``nbodyax_torch.bench`` (N = 1,048,576, graph replays) and
+    ``nbodyax_torch.bench_suite``'s six configs. Gates: config 1 matches
+    the oracle, config 2 keeps its mass exactly and every body, config 3
+    agrees with the oracle on every merge, every run is finite, every
+    rate positive, and each path launched its kernels (B1 in bench and
+    configs 1-5, B3 and B5 in configs 5-6)."""
+    (bench,), wall = runner_lines("nbodyax_torch.bench", 600)
+    print(json.dumps(bench))
+    print(f"nbodyax_torch.bench: {wall:.1f} s of wall in its process")
+    check(bench["n"] == 1 << 20 and bench["reps"] >= 5
+          and bench["value"] > 0, f"bench line: {bench}")
+    check(bench["launches"]["pair_kernel"] >= bench["reps"] + 1,
+          f"bench: B1 launched {bench['launches']}")
+    suite, wall = runner_lines("nbodyax_torch.bench_suite", 900)
+    for line in suite:
+        print(json.dumps(line))
+    by = {line["config"]: line for line in suite}
+    print(f"nbodyax_torch.bench_suite: {wall:.1f} s of wall in its process "
+          f"against {sum(x['bench_wall_s'] for x in suite):.1f} s of "
+          f"bench_wall_s")
+    check(sorted(by) == [1, 2, 3, 4, 5, 6], f"suite configs {sorted(by)}")
+    check(by[1]["oracle_match_f32"] is True, f"config 1: {by[1]}")
+    check(by[2]["mass_rel_drift"] == 0 and by[2]["alive"] == by[2]["n"],
+          f"config 2: {by[2]}")
+    check(by[3]["oracle_alive_agreement_2steps"] == 1.0, f"config 3: {by[3]}")
+    for line in suite:
+        c = line["config"]
+        check(line.get("finite", True) is True, f"config {c} not finite")
+        rates = {k: v for k, v in line.items() if k.endswith("_per_sec")}
+        check(rates and all(v > 0 for v in rates.values()),
+              f"config {c} rates {rates}")
+        want = (["pair_kernel"] * (c <= 5)
+                + ["near_kernel", "slot_pack_moments_kernel"] * (c >= 5))
+        check(all(line["launches"][k] > 0 for k in want),
+              f"config {c} launches {line['launches']}")
+    check(by[5]["ring_dryrun"] == "not ported (ROADMAP A11)",
+          f"config 5 ring: {by[5]['ring_dryrun']}")
+
+
+def phase_dense_bh_tiers(dev, steps=4):
+    """Where suite config 6's step goes (the uniform 1M scene in the
+    default 1e5 field under bh, 100 times the million example's density):
+    an eager run of its own, untimed, reads each step's completion tier
+    and qualifying giants, and a profile of one more eager step gives its
+    heaviest kernels."""
+    from nbodyax_torch import bench_suite
+    from nbodyax_torch.driver import build_step, resolve_bh_config
+    cfg, _, state = bench_suite._setup(
+        dev, force_model="bh", particle_count=1 << 20,
+        collision_mode="reference", softening=100.0)
+    cfg = resolve_bh_config(cfg, state)
+    step = build_step(cfg, dev)
+    with recorded_tiers() as (tiers, giants):
+        for _ in range(steps):
+            state = step(state)
+    print(f"suite config 6's scene, eager: tiers {tiers}, qualifying "
+          f"giants {giants} over {steps} steps")
+    profile_breakdown(lambda: step(state), 1, "suite config 6, one eager "
+                      f"step after {steps}", top=8)
+
+
+def phase_shooting_example():
+    """examples/shooting_gradient_torch.py on the card: miss^2 falls below
+    1% of its first value, through B1 forward and B2 backward (both counts
+    set to 0 before the run and read after it)."""
+    import runpy
+    from nbodyax_torch.physics.kernels import tile_accumulators_raw
+    from nbodyax_torch.physics.kernels_bwd import raw_backward
+    example = runpy.run_path(os.path.join(HERE, "examples",
+                                          "shooting_gradient_torch.py"))
+    tile_accumulators_raw.launches = raw_backward.launches = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = example["main"](["--device", "cuda"])
+    wall = time.perf_counter() - t0
+    b1, b2 = tile_accumulators_raw.launches, raw_backward.launches
+    print(buf.getvalue().rstrip())
+    miss = [float(v) for v in re.findall(r"miss\^2 = ([0-9.]+)",
+                                         buf.getvalue())]
+    print(f"shooting example: {wall:.2f} s, {b1} B1 and {b2} B2 launches, "
+          f"miss^2 {miss[0]} -> {miss[-1]}")
+    check(rc == 0 and len(miss) == 6, f"shooting example: rc {rc}, {miss}")
+    check(miss[-1] < 0.01 * miss[0], f"shooting example: miss^2 {miss}")
+    check(b1 > 0 and b2 > 0, f"shooting example: {b1} B1, {b2} B2 launches")
+
+
+def phase_debug_nans():
+    """``--debug-nans`` on the card: a state whose body 0 overflows f32
+    (velocity 1e38, open boundaries) turns NaN after step 19, and the CLI
+    exits non-zero with ``FloatingPointError`` naming that step, as
+    ``nbodyax``'s flag does on the CPU (tests/test_torch_debug_nans.py); the
+    default scene for 20 steps with frames gives the same final state, logs
+    and frames with the flag as without it, bit for bit."""
+    from nbodyax_torch.io.checkpoint import save_checkpoint
+    from nbodyax_torch.state import make_state
+    rng = np.random.RandomState(3)
+    vel = np.zeros((16, 2), np.float32)
+    vel[0, 0] = 1e38
+    state = make_state(rng.uniform(-2000, 2000, (16, 2)).astype(np.float32),
+                       vel, rng.uniform(1e4, 1e15, 16).astype(np.float32),
+                       rng.uniform(5, 20, 16).astype(np.float32),
+                       device="cpu")
+    with tempfile.TemporaryDirectory() as tmp:
+        save_checkpoint(os.path.join(tmp, "ck"), state, keep_last=0)
+        ck = os.path.join(tmp, "ck", os.listdir(os.path.join(tmp, "ck"))[0])
+        env = dict(os.environ, PYTHONPATH=HERE)
+        r = subprocess.run(
+            [sys.executable, "-m", "nbodyax_torch.cli", "--debug-nans",
+             "--resume", ck, "--steps", "40", "--no-images", "--quiet",
+             "--set", "logEvery=1", "--set", "boundaryMode=none",
+             "--set", "particleCount=16"], cwd=tmp, env=env,
+            capture_output=True, text=True, timeout=300)
+    err = r.stderr.strip().splitlines()
+    print(f"--debug-nans on an overflowing state: exit {r.returncode}, "
+          f"{err[-1] if err else ''}")
+    check(r.returncode != 0 and "FloatingPointError" in r.stderr
+          and "after step 19 " in r.stderr,
+          f"--debug-nans: exit {r.returncode}, {r.stderr[-2000:]}")
+    argv = ["--steps", "20"]
+    on, off = cli_run(argv + ["--debug-nans"]), cli_run(argv)
+    check(on["rc"] == off["rc"] == 0, "--debug-nans: a clean run failed")
+    print(f"--debug-nans on the default scene, 20 steps: "
+          f"{same_run(on, off, '--debug-nans on and off')}")
 
 
 def kernel_name(mangled):
@@ -2884,7 +3051,7 @@ def main() -> int:
     scene[2] = scene[2].copy()
     scene[2][7] = 0.0   # one dead slot
 
-    max_abs_err = phase_kernel_vs_plain(dev, (random_state(300, 300), scene))
+    b1_err = phase_kernel_vs_plain(dev, (random_state(300, 300), scene))
     phase_golden(dev, cfg)
     phase_golden_graph(dev)
     launches, _, _ = phase_main_path()
@@ -2892,7 +3059,7 @@ def main() -> int:
     ms, b1_dev_ms, plain_ms, b1_bound_ = phase_timing(dev, scene, cfg)
     phase_graph_profile(dev, cfg, f"default scene N={cfg.particle_count}")
     phase_profile_flag()
-    bwd_max_abs_err = phase_bwd_vs_plain(dev, (random_state(300, 300),
+    b2_err = phase_bwd_vs_plain(dev, (random_state(300, 300),
                                                 scene))
     default_state = init_scene(cfg, device=dev)
     bwd_launches = phase_grad_path(default_state)
@@ -2906,8 +3073,8 @@ def main() -> int:
     phase_grad_over_forward(default_state)
     bh_cfg = million_config()
     arrays_1m = million_scene(bh_cfg)
-    b5_max_abs_err, b4_max_abs_err = phase_slotpack(dev, arrays_1m)
-    b3_max_abs_err = phase_near(dev, arrays_1m)
+    b5_err, b4_err = phase_slotpack(dev, arrays_1m)
+    b3_err = phase_near(dev, arrays_1m)
     phase_bh_vs_exact(dev)
     b3_launches, b5_launches = phase_bh_main_path(bh_cfg)
     _, b4_launches, _ = phase_bh_direct()
@@ -2952,7 +3119,11 @@ def main() -> int:
             ("33 scenes", lambda: phase_scenes(dev)),
             ("33 bh compaction", phase_bh_compaction),
             ("34 bh graph windows, 2-D", lambda: phase_bh_graphs(dev, 2)),
-            ("34 bh graph windows, 3-D", lambda: phase_bh_graphs(dev, 3))):
+            ("34 bh graph windows, 3-D", lambda: phase_bh_graphs(dev, 3)),
+            ("35 benchmark runners", phase_runners),
+            ("35 suite config 6's tiers", lambda: phase_dense_bh_tiers(dev)),
+            ("35 shooting example", phase_shooting_example),
+            ("35 --debug-nans", phase_debug_nans)):
         t0 = time.perf_counter()
         phase()
         print(f"phase {name}: {time.perf_counter() - t0:.1f} s")
@@ -2962,21 +3133,21 @@ def main() -> int:
 
     rows = [
         ("pair_kernel", "pair_kernel.cu", "nbodyax/physics/kernels.py:92",
-         launches, max_abs_err,
+         launches, b1_err,
          {"ms": ms, "device_ms": b1_dev_ms, "plain_ms": plain_ms,
           "library_ms": None, "bound": b1_bound_}),
         ("pair_bwd_kernel", "pair_bwd_kernel.cu",
-         "nbodyax/physics/kernels_bwd.py:79", bwd_launches, bwd_max_abs_err,
+         "nbodyax/physics/kernels_bwd.py:79", bwd_launches, b2_err,
          {"ms": bwd_ms, "device_ms": b2_dev_ms, "plain_ms": bwd_plain_ms,
           "library_ms": None, "bound": b2_bound_}),
         ("near_kernel", "near_kernel.cu", "nbodyax/physics/near_pallas.py:96",
-         b3_launches, b3_max_abs_err, bh_times["B3"]),
+         b3_launches, b3_err, bh_times["B3"]),
         ("slot_pack_kernel", "slotpack_kernel.cu",
          "nbodyax/physics/slotpack_pallas.py:99", b4_launches,
-         b4_max_abs_err, bh_times["B4"]),
+         b4_err, bh_times["B4"]),
         ("slot_pack_moments_kernel", "slotpack_kernel.cu",
          "nbodyax/physics/slotpack_pallas.py:123", b5_launches,
-         b5_max_abs_err, bh_times["B5"]),
+         b5_err, bh_times["B5"]),
         ("pair_kernel_3d", "pair_kernel.cu", "nbodyax/physics/kernels.py:92",
          launches_3d, b1_3d_err, times_3d["B1"]),
         ("pair_bwd_kernel_3d", "pair_bwd_kernel.cu",
@@ -2994,7 +3165,8 @@ def main() -> int:
     print(smi)
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": f"nbodyax_torch/csrc/{src}",
-        "replaces": replaces, "launches": n_launch, "max_abs_err": err,
+        "replaces": replaces, "launches": n_launch, "max_abs_err": err[0],
+        "max_rel_err": err[1],
         "ms": t["ms"], "device_ms": t["device_ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
         "bound_by": t["bound"][1], "library_ms": t["library_ms"]}

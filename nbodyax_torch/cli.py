@@ -1,12 +1,15 @@
 """Command-line entry point.
 
 ``python -m nbodyax_torch.cli [--config nbodyConfig.txt] [--set key=value ...]
-[--device cuda|cpu] [--profile DIR] [--resume CKPT|auto]``
+[--device cuda|cpu] [--profile DIR] [--debug-nans] [--resume CKPT|auto]``
 
-The arguments of ``nbodyax.cli`` (less ``--debug-nans``), plus
-``--device``, which defaults to ``cuda``: asking for CUDA without a card is
-an error, never a quiet switch to the CPU. ``--profile DIR`` writes a
-``torch.profiler`` trace of the step loop to ``DIR/trace.json``.
+The arguments of ``nbodyax.cli``, plus ``--device``, which defaults to
+``cuda``: asking for CUDA without a card is an error, never a quiet switch
+to the CPU. ``--profile DIR`` writes a ``torch.profiler`` trace of the step
+loop to ``DIR/trace.json``. ``--debug-nans`` tests each window's state and
+conservation vector for NaN and raises ``FloatingPointError`` naming the
+first step and field that hold one (``run_simulation``'s ``debug_nans``;
+``nbodyax``'s flag turns on ``jax_debug_nans``).
 ``--resume CKPT`` continues from a checkpoint file (written by either
 package), ``--resume auto`` from the newest one in ``checkpointPath``.
 With no ``nbodyConfig.txt`` in the working directory the built-in default
@@ -44,6 +47,10 @@ def main(argv=None) -> int:
                          "to DIR/trace.json")
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default cuda)")
+    ap.add_argument("--debug-nans", action="store_true",
+                    help="test each window's state for NaN and raise "
+                         "FloatingPointError at the first step that holds "
+                         "one")
     ap.add_argument("--resume", default=None, metavar="CKPT",
                     help="resume from checkpoint file (or 'auto' for latest "
                          "in checkpointPath)")
@@ -87,7 +94,7 @@ def main(argv=None) -> int:
         cfg.resume_from = args.resume
 
     run_simulation(cfg, device=device, quiet=args.quiet,
-                   profile_dir=args.profile)
+                   profile_dir=args.profile, debug_nans=args.debug_nans)
     return 0
 
 

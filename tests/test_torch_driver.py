@@ -7,15 +7,21 @@ misaligned start given by ``state=``, the ``windows`` count against
 the post-step state, multi-frame windows byte-equal to a stride-1 run, a
 run with no cadence, and the energy cadence; plus ``potential_energy``
 against nbodyax's in 2-D and 3-D and ``dt_mean`` against nbodyax's logged
-value. On the CPU every window runs the step eagerly; the card's graph
+value; and, for a merging ``forceModel=bh`` run under ``bhAdapt``, the
+steps of every ``bh_health`` probe, knob adapt and checkpoint against
+nbodyax's driver (fault F5). On the CPU every window runs the step
+eagerly; the card's graph
 windows are held to this eager runner in tests/test_torch_graphs.py and,
 for ``forceModel=bh``, tests/test_torch_graphs_bh.py. The runner choice:
 graph windows on a card for both force models, the eager loop on the CPU
 and under ``_eager``.
 """
 
+import dataclasses
 import json
 import os
+import re
+import sys
 
 import numpy as np
 import pytest
@@ -27,13 +33,29 @@ from nbodyax import state as jstate  # noqa: E402
 from nbodyax.config import SimConfig as JaxConfig  # noqa: E402
 from nbodyax.driver import run_simulation as jax_run  # noqa: E402
 from nbodyax_torch import metrics as tmetrics  # noqa: E402
-from nbodyax_torch.config import SimConfig  # noqa: E402
+from nbodyax.physics import barneshut as jbh  # noqa: E402
+from nbodyax_torch.config import SimConfig, parse_config_file  # noqa: E402
+from nbodyax_torch.physics import barneshut as tbh  # noqa: E402
 from nbodyax_torch import driver  # noqa: E402
 from nbodyax_torch.driver import _Schedule, run_simulation  # noqa: E402
 from nbodyax_torch.physics.step import PhysicsParams, make_step  # noqa: E402
 from nbodyax_torch.render import render_state  # noqa: E402
 from nbodyax_torch.scenes import init_scene  # noqa: E402
 from nbodyax_torch.state import from_numpy, make_state  # noqa: E402
+
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture
+def one_thread():
+    """Run torch on one thread: a CPU bh step is thousands of small ops,
+    and beside the suite's other workers each op's thread pool contends
+    with theirs (tens of times slower than alone)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def base(tmp_path, cls=SimConfig, **kw):
@@ -270,3 +292,74 @@ def test_bh_on_the_cpu_runs_eager_windows(tmp_path, monkeypatch):
         torch.set_num_threads(old)
     assert res.state.step == 4 and built == [1]
     assert [l["bh_overflow"] for l in logs(cfg)] == [0, 0]
+
+
+def test_bh_probes_adapts_and_checkpoints_at_nbodyax_steps(
+        tmp_path, capsys, monkeypatch, one_thread):
+    """Fault F5: under bhAdapt a merging bh run probes ``bh_health`` after
+    every window that ends off the log cadence while it drifts or once its
+    live count fell by more than 0.5%, and drift mode clips windows to 16
+    steps, as nbodyax's driver does. examples/galaxy_momentum.txt cut to
+    1,024 bodies and 80 steps, with the rows engine at a K that the merger
+    outgrows: both drivers run the same windows, probe, adapt and save
+    checkpoints at the same steps, and the port's probes include one off
+    the log cadence from a drop in the live count alone (it adapts there)
+    and one from drift mode alone."""
+    cfg = dataclasses.replace(
+        parse_config_file(os.path.join(ROOT, "examples",
+                                       "galaxy_momentum.txt")),
+        particle_count=1024, total_iterations=80, log_every=25,
+        checkpoint_every=16, checkpoint_keep=0, auto_resume=False,
+        save_images=False, force_model="bh", bh_near="rows", bh_levels=3,
+        bh_neighbor_k=40)
+    probes = {"port": [], "nbodyax": []}
+
+    def spy(mod, key):
+        real = mod.bh_health
+
+        def health(*a, **k):
+            # the driver's iteration: its probe's ``at_step`` argument
+            probes[key].append(sys._getframe(1).f_locals["at_step"])
+            return real(*a, **k)
+        monkeypatch.setattr(mod, "bh_health", health)
+
+    spy(tbh, "port")
+    spy(jbh, "nbodyax")
+    causes = []
+    real_probe = driver._BhProbe.probe
+
+    def probe(self, c, s, alive_now, at_step, quiet):
+        if at_step % c.log_every:
+            causes.append((at_step, self.drift_mode,
+                           self.dropping(alive_now)))
+        return real_probe(self, c, s, alive_now, at_step, quiet)
+    monkeypatch.setattr(driver._BhProbe, "probe", probe)
+
+    def paths(d):
+        return dict(checkpoint_path=str(tmp_path / d / "ck"),
+                    log_path=str(tmp_path / d / "m.jsonl"))
+
+    def saved(d):
+        return sorted(int(f[5:14]) for f in os.listdir(tmp_path / d / "ck"))
+
+    def adapts(out):
+        return [int(m) for m in re.findall(r"bh adapt at step (\d+):", out)]
+
+    scene = init_scene(cfg, device="cpu")
+    capsys.readouterr()
+    got = run_simulation(dataclasses.replace(cfg, **paths("t")),
+                         device="cpu", state=scene)
+    t_adapts = adapts(capsys.readouterr().out)
+    want = jax_run(JaxConfig(**dict(dataclasses.asdict(cfg), backend="jnp",
+                                    **paths("j"))),
+                   state=jstate.make_state(*(x.numpy() for x in scene[:4])))
+    j_adapts = adapts(capsys.readouterr().out)
+    assert got.windows == want.windows
+    assert probes["port"] == probes["nbodyax"]
+    assert t_adapts == j_adapts
+    assert saved("t") == saved("j")
+    # not vacuous: an off-cadence probe from the drop alone adapts, and
+    # one comes from drift mode alone
+    dropped = [s for s, drift, drop in causes if drop and not drift]
+    assert dropped and set(dropped) & set(t_adapts)
+    assert [s for s, drift, drop in causes if drift and not drop]
