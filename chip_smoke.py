@@ -197,8 +197,36 @@ Phases, each of which exits non-zero on failure:
     examples/shooting_gradient_torch.py through B1 and B2, miss^2 below 1%
     of its start; then ``--debug-nans``: an overflowing state exits
     non-zero with ``FloatingPointError`` at step 19, and the default scene
-    for 20 steps with frames is bitwise the same with and without it. Each
-    of phases 28-35 prints its seconds.
+    for 20 steps with frames is bitwise the same with and without it;
+36. B3's cell-slice form (the sharded bh step's): the 2-D million scene
+    cut into P = 2, 4 and 8 slices and the 3-D one into 8, every slice
+    against its plain version at B3's gates and the slices together
+    bitwise equal to the full launch; the device time of one 1/8 slice
+    beside the full launch's; a slice past the grid refused by the wrapper
+    and by the C entry point;
+37. ``bh_cellrange_accumulators`` of each of 8 ranks, one after another
+    in this process, on suite config 5's N = 4,194,304 galaxy (bh knobs
+    resolved from the state) and on the 3-D million scene: each body
+    touched by one rank, the rebased sum against the single-device
+    ``bh_accumulators`` at tests/test_sharded_bh.py:166-222's gates, each
+    rank's time (one process on one card, not a multi-card time), B3's
+    slice launches;
+38. the exact ring's fold at P = 8 in this process: B1 over each rank's
+    hops with the global offsets, folded in hop order, against the
+    single-device accumulators at tests/test_ring.py:58-72's gates, on
+    suite config 3's N = 131,072 scene (every rank) and on config 5's 4M
+    galaxy (rank 0's rows);
+39. the port's collectives on CUDA tensors: a one-rank NCCL group in a
+    child process runs ``make_sharded_step`` (with all_gather and
+    all_min) and ``make_sharded_bh_step`` (with all_gather and
+    reduce_scatter) on the default scene, bitwise against the
+    single-device steps; with two cards or more the default scene by a
+    torchrun CLI over min(4, cards) ranks against one card: bh for 50
+    steps, bitwise at every 10th; exact for 200 steps, merges equal at
+    every 20th and positions at tests/test_ring.py's gates at step 20 (the
+    ring's sums round differently, and close encounters amplify that);
+    on one card the line ``sharded_multicard: not run (1 card)``. Each of
+    phases 28-39 prints its seconds.
 
 The line before the last is a JSON object describing each kernel (the
 wrapper call's CUDA-event time ``ms``, the kernel's own device time by
@@ -1514,20 +1542,23 @@ def phase_slotpack(dev, arrays_1m, levels=8, S=40, dims=2):
     return worst, worst_rows
 
 
-def near_compare(fslot, mode, eps2, g, ring, ci, dim=2):
-    """B3 against its plain version at every live i slot: float channels
+def near_compare(fslot, mode, eps2, g, ring, ci, dim=2, cell_base=0,
+                 ncells_eval=0):
+    """B3 against its plain version at every live i slot (of the cells
+    from ``cell_base`` on, ``ncells_eval`` of them, or all): float channels
     relative to the channel's largest value, id and flag channels exact,
     and a second call bitwise equal to the first. Returns (errors, passed,
     the force's largest absolute and relative errors)."""
     from nbodyax_torch.physics.near_kernel import (slots_near,
                                                    slots_near_reference)
     kw = dict(mode=mode, eps2=eps2, growth=0.1, g=g, ring=ring, ci=ci,
-              dim=dim)
+              dim=dim, cell_base=cell_base, ncells_eval=ncells_eval)
     k = slots_near(fslot, **kw)
     repeats = bool(torch.equal(k, slots_near(fslot, **kw)))
     p = slots_near_reference(fslot, **kw)
     rest = 2 * dim if mode == "elastic" else dim
-    live = fslot[:, :ci, rest] > 0
+    rows = slice(cell_base, cell_base + (ncells_eval or fslot.shape[0]))
+    live = fslot[rows, :ci, rest] > 0
     k, p = k[live], p[live]
     force = list(range(dim))
     floats = {"reference": force + [dim, dim + 1], "momentum": force,
@@ -2891,8 +2922,10 @@ def phase_runners():
                 + ["near_kernel", "slot_pack_moments_kernel"] * (c >= 5))
         check(all(line["launches"][k] > 0 for k in want),
               f"config {c} launches {line['launches']}")
-    check(by[5]["ring_dryrun"] == "not ported (ROADMAP A11)",
-          f"config 5 ring: {by[5]['ring_dryrun']}")
+    check(by[5]["ring_dryrun_8dev_ok"] is True,
+          f"config 5's 8-rank ring dry run failed: {by[5]}")
+    print(f"config 5's ring dry run: 8 gloo ranks on the host's CPU, "
+          f"{by[5]['ring_dryrun_wall_s']:.1f} s of launch wall")
 
 
 def phase_dense_bh_tiers(dev, steps=4):
@@ -2980,6 +3013,405 @@ def phase_debug_nans():
     check(on["rc"] == off["rc"] == 0, "--debug-nans: a clean run failed")
     print(f"--debug-nans on the default scene, 20 steps: "
           f"{same_run(on, off, '--debug-nans on and off')}")
+
+
+# ---------------------------------------------------------------------------
+# shards > 1: B3's cell slice, the cell-range bh evaluation, the ring fold
+# and the port's collectives on CUDA tensors
+# ---------------------------------------------------------------------------
+
+def slice_pairs(st, g, dims, ci, S, base, ne):
+    """Live near pairs of the cells [base, base + ne): each cell's live i
+    slots against the live slots of its 3^dims window, clipped to the
+    grid."""
+    occ = (st[3] - st[2]).to(torch.int64).view((g,) * dims)
+    pad = torch.nn.functional.pad(occ.clamp(max=S), (1, 1) * dims)
+    window = sum(pad[tuple(slice(1 + o, 1 + o + g) for o in off)]
+                 for off in itertools.product((-1, 0, 1), repeat=dims))
+    return int((occ.clamp(max=ci) * window).reshape(-1)[base:base + ne].sum())
+
+
+def phase_near_slice(dev, arrays_1m, arrays3_1m):
+    """36. B3's cell-slice form: on the 2-D million scene (levels 8, S 40,
+    ci 32) cut into P = 2, 4 and 8 slices and on the 3-D one (levels 5,
+    S 80, ci 64) cut into 8, every slice against its plain version at B3's
+    gates and the slices together bitwise equal to the full launch; the
+    device time of one 1/8 slice beside the full launch's; a slice past
+    the grid refused by the wrapper and by the C entry point. Returns the
+    kernels-line row of the 2-D 1/8 slice (without launches)."""
+    from nbodyax_torch.physics import _build
+    from nbodyax_torch.physics.near_kernel import (slots_near,
+                                                   slots_near_reference)
+    from nbodyax_torch.physics.slotpack_kernel import pack_slots
+    row = None
+    worst = (0.0, 0.0)
+    for dims, arrays, levels, S, ci, parts in (
+            (2, arrays_1m, 8, 40, 32, (2, 4, 8)),
+            (3, arrays3_1m, BH3D_LEVELS, BH3D_S, BH3D_CI, (8,))):
+        _, _, st = bh_structure(arrays, dev, levels, False)
+        g = 1 << levels
+        ncells = g ** dims
+        fslot = pack_slots(st[4], st[2], st[3], S)
+        kw = dict(mode="reference", eps2=0.0, growth=0.1, g=g, ring=1,
+                  ci=ci, dim=dims)
+        full = slots_near(fslot, **kw)
+        for P in parts:
+            ne = ncells // P
+            cat = []
+            for r in range(P):
+                err, ok, fe = near_compare(fslot, "reference", 0.0, g, 1, ci,
+                                           dim=dims, cell_base=r * ne,
+                                           ncells_eval=ne)
+                check(ok, f"B3 slice {r}/{P} ({dims}-D) disagrees with its "
+                          f"plain version: {err}")
+                worst = tuple(map(max, worst, fe))
+                cat.append(slots_near(fslot, cell_base=r * ne,
+                                      ncells_eval=ne, **kw))
+            same = bool(torch.equal(torch.cat(cat), full))
+            print(f"B3 slices {dims}-D N=1M P={P}: every slice within "
+                  f"{NEAR_GATE} of its plain version (worst force "
+                  f"{worst[1]:.3e} of the largest), the {P} slices together "
+                  f"bitwise equal to the full launch: {same}")
+            check(same, f"B3's {P} slices ({dims}-D) differ from the full "
+                        f"launch")
+        ne = ncells // 8
+        one = lambda: slots_near(fslot, cell_base=ne, ncells_eval=ne, **kw)
+        whole = lambda: slots_near(fslot, **kw)
+        d_slice, txt_s = device_ms(one, B3_TAGS)
+        d_full, txt_f = device_ms(whole, B3_TAGS)
+        print(f"B3 {dims}-D N=1M device time: 1/8 slice {d_slice:.4f} ms "
+              f"({txt_s}), full launch {d_full:.4f} ms ({txt_f}); "
+              f"slice/full {d_slice / d_full:.3f}")
+        if dims == 2:
+            t = {"kernel": [], "plain": []}
+            plain = lambda: slots_near_reference(fslot, cell_base=ne,
+                                                 ncells_eval=ne, **kw)
+            for which in ("plain", "kernel", "kernel", "plain"):
+                t[which].append(time_ms(one, reps=20) if which == "kernel"
+                                else time_ms(plain, reps=5))
+            reach = sum(g ** d for d in range(dims))
+            nbytes = (min(ncells, ne + 2 * reach) * S * fslot.shape[2] * 4
+                      + ne * ci * 8 * 4)
+            pairs = slice_pairs(st, g, dims, ci, S, ne, ne)
+            bound = bound_ms(pairs * B3_FLOPS_PER_PAIR, nbytes)
+            row = {"ms": float(np.mean(t["kernel"])), "device_ms": d_slice,
+                   "plain_ms": float(np.mean(t["plain"])),
+                   "library_ms": None, "bound": bound}
+            print(f"B3 1/8 slice 2-D N=1M: kernel {t['kernel']} ms, plain "
+                  f"{t['plain']} ms, bound {bound[0]:.4f} ms ({bound[1]}; "
+                  f"{pairs} live pairs), {100 * bound[0] / d_slice:.1f}% of "
+                  f"the bound by device time")
+        for base, cnt in ((ncells - ne + 1, ne), (-1, ne)):
+            try:
+                slots_near(fslot, cell_base=base, ncells_eval=cnt, **kw)
+            except ValueError as e:
+                refused = "leaves the grid" in str(e)
+            else:
+                refused = False
+            check(refused, f"B3 took the slice [{base}, {base + cnt})")
+        lib = _build.load_library()
+        out = torch.empty((ne, ci, 8), dtype=torch.float32, device=dev)
+        err = lib.nbodyax_slots_near(
+            fslot.data_ptr(), g, 1, S, ci, fslot.shape[2], 256, 0, dims,
+            0.0, 0.1, ncells - ne + 1, ne, out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+        check(err == 1, f"the C entry point took a slice past the grid "
+                        f"(returned {err}, want cudaErrorInvalidValue = 1)")
+        print(f"B3 {dims}-D: a slice past the grid refused by the wrapper "
+              f"(ValueError) and by nbodyax_slots_near "
+              f"(cudaErrorInvalidValue)")
+        del fslot, full, out
+    return row, worst
+
+
+def resolved(cfg, arrays, dev):
+    """(``cfg`` with its bh knobs resolved from the state, the state)."""
+    from nbodyax_torch.driver import resolve_bh_config
+    from nbodyax_torch.state import make_state
+    state = make_state(*arrays, device=dev)
+    return resolve_bh_config(cfg, state), state
+
+
+def exact_scene(dev, **kw):
+    """(state, physics params) of a reference-mode exact config."""
+    from nbodyax_torch.config import SimConfig
+    from nbodyax_torch.physics.step import PhysicsParams
+    from nbodyax_torch.scenes import init_scene
+    cfg = SimConfig(collision_mode="reference", save_images=False, **kw)
+    return (init_scene(cfg, device=dev, parity=False),
+            PhysicsParams.from_config(cfg))
+
+
+def galaxy_4m(dev):
+    """Suite config 5's scene (``bench_suite.config5_galaxy_4m``): the
+    N = 4,194,304 galaxy, bh knobs resolved from the state."""
+    from nbodyax_torch.config import SimConfig
+    from nbodyax_torch.driver import resolve_bh_config
+    from nbodyax_torch.scenes import init_scene
+    cfg = SimConfig(particle_count=1 << 22, scene="galaxy",
+                    collision_mode="reference", softening=100.0,
+                    force_model="bh", save_images=False)
+    state = init_scene(cfg, device=dev, parity=False)
+    return resolve_bh_config(cfg, state), state
+
+
+def bh_knobs(cfg):
+    return dict(eps=cfg.softening, growth_rate=cfg.growth_rate,
+                mode=cfg.collision_mode, levels=cfg.bh_levels,
+                ring=cfg.bh_ring, neighbor_k=cfg.bh_neighbor_k,
+                order=cfg.bh_order, far=cfg.bh_far, near=cfg.bh_near,
+                comp_cap=cfg.bh_comp_cap, near_kernel=cfg.bh_pallas,
+                n_giants=cfg.bh_giants)
+
+
+def phase_cellrange(dev, cfg, state, label, ranks=8):
+    """37. ``bh_cellrange_accumulators`` of each of ``ranks`` ranks, one
+    after the other in this process on one card, on ``state``: each body
+    touched by exactly one rank, and the identity-rebased sum against the
+    single-device ``bh_accumulators`` at tests/test_sharded_bh.py:166-222's
+    gates (force within 1e-6 of itself and of the largest |force|, died and
+    parent exact, gained mass rtol 1e-6, dv 1e-5). Returns B3's launches
+    over the ranks' evaluations."""
+    from nbodyax_torch.physics.barneshut import (bh_accumulators,
+                                                 bh_cellrange_accumulators)
+    from nbodyax_torch.physics.near_kernel import slots_near
+    from nbodyax_torch.physics.slotpack_kernel import pack_slots
+    kw = bh_knobs(cfg)
+    n = state.capacity
+    t = state[:4]
+    idx = torch.arange(n, dtype=torch.int32, device=dev)
+    own = torch.zeros(n, dtype=torch.int32, device=dev)
+    sums = None
+    ms = []
+    slots_near.launches = pack_slots.launches = 0
+    pack_slots.moment_launches = 0
+    for r in range(ranks):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        p = bh_cellrange_accumulators(*t, r, ranks, **kw)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+        own += ((p.parent != idx) | p.died | (p.force.abs().sum(1) > 0)
+                | (p.gained_mass > 0) | (p.gained_radius > 0)
+                | (p.dv.abs().sum(1) > 0)).to(torch.int32)
+        lanes = (p.force, p.gained_mass, p.gained_radius,
+                 p.died.to(torch.int32), p.parent - idx, p.dv)
+        sums = lanes if sums is None else tuple(a + b for a, b in
+                                                zip(sums, lanes))
+        del p
+    b3 = slots_near.launches
+    b5 = pack_slots.moment_launches
+    full = bh_accumulators(*t, **kw)
+    torch.cuda.synchronize()
+    alive = state.mass > 0
+    check(int(own.max()) <= 1, f"{label}: a body touched by two ranks")
+    force, gm, gr, died, parent, dv = sums
+    scale = float(full.force.abs().max())
+    ferr = float(((force - full.force).abs()
+                  - 1e-6 * full.force.abs()).max())
+    ok_force = ferr <= 1e-6 * scale
+    ok = (ok_force and torch.equal(died > 0, full.died)
+          and torch.equal(parent + idx, full.parent)
+          and bool(((gm - full.gained_mass).abs()
+                    <= 1e-6 * full.gained_mass.abs()).all())
+          and bool(((dv - full.dv).abs()
+                    <= 1e-5 * full.dv.abs() + 1e-5 * max(
+                        float(full.dv.abs().max()), 1e-30)).all()))
+    print(f"cell-range bh {label} ({cfg.bh_near}, levels {cfg.bh_levels}, "
+          f"K {cfg.bh_neighbor_k}, compCap {cfg.bh_comp_cap}), {ranks} "
+          f"ranks one after another in one process on one card: each rank "
+          f"{[round(x, 3) for x in ms]} ms (CUDA events; not a multi-card "
+          f"time), bodies touched {int((own > 0).sum())} of "
+          f"{int(alive.sum())} alive, rebased sum against the single-device "
+          f"bh: force excess {ferr:.3e} against {1e-6 * scale:.3e}, died "
+          f"and parent exact {ok}; B3 {b3} and B5 {b5} launches over the "
+          f"ranks")
+    check(ok, f"{label}: the ranks' rebased sum disagrees with "
+              f"bh_accumulators")
+    check(b3 == ranks, f"{label}: B3 launched {b3} times over {ranks} ranks")
+    return b3
+
+
+def phase_ring_fold(dev, state, p, ranks, rows_of=None, label=""):
+    """38. The exact ring's fold of ``ranks`` ranks in this process: B1
+    over each rank's hops with the global offsets, folded in hop order
+    (``sharding.ring``'s accum_fn and ``combine_accumulators``), against
+    the single-device accumulators at tests/test_ring.py:58-72's gates
+    (force within 2e-6 of the largest, merges exact). ``rows_of``: fold
+    only those ranks (their rows against the single-device pass over
+    those rows and every body). Returns B1's launches."""
+    from nbodyax_torch.physics.kernels import (body_features, decode_raw,
+                                               tile_accumulators_raw)
+    from nbodyax_torch.physics.pairwise import (combine_accumulators,
+                                                empty_accumulators)
+    from nbodyax_torch.sharding.ring import make_local_accum_fn
+    accum = make_local_accum_fn("auto", p)
+    n = state.capacity
+    m = n // ranks
+    pos, vel, mass, radius = state[:4]
+    feats = body_features(pos, vel, mass, radius)
+    worst = 0.0
+    tile_accumulators_raw.launches = 0
+    for r in (rows_of if rows_of is not None else range(ranks)):
+        i = slice(r * m, (r + 1) * m)
+        t0 = time.perf_counter()
+        acc = empty_accumulators(r * m + torch.arange(
+            m, dtype=torch.int32, device=dev))
+        for hop in range(ranks):
+            j0 = (r + hop) % ranks * m
+            j = slice(j0, j0 + m)
+            acc = combine_accumulators(acc, accum(
+                pos[i], vel[i], mass[i], radius[i], r * m, pos[j], vel[j],
+                mass[j], radius[j], j0))
+        torch.cuda.synchronize()
+        fold_s = time.perf_counter() - t0
+        raw, par = tile_accumulators_raw(feats[i], feats, r * m, 0,
+                                         mode=p.collision_mode, eps=p.eps,
+                                         growth_rate=p.growth_rate)
+        want = decode_raw(raw, par, r * m, mass[i], p.collision_mode)
+        scale = float(want.force.abs().max())
+        err = float((acc.force - want.force).abs().max()) / scale
+        worst = max(worst, err)
+        same = (torch.equal(acc.died, want.died)
+                and torch.equal(acc.parent, want.parent))
+        check(err < 2e-6 and same and bool(torch.allclose(
+            acc.gained_mass, want.gained_mass, rtol=1e-6, atol=0)),
+            f"ring fold {label} rank {r}: force {err:.3e}, merges {same}")
+        if rows_of is not None or r == 0:
+            print(f"ring fold {label} rank {r} of {ranks}: {ranks} hops of "
+                  f"{m} x {m} in {fold_s:.3f} s (host wall, one process on "
+                  f"one card; not a multi-card time), force {err:.3e} of "
+                  f"the largest, died and parent exact")
+    launches = tile_accumulators_raw.launches
+    print(f"ring fold {label}: worst force {worst:.3e} of the largest (gate "
+          f"2e-6), merges exact on every rank; B1 launches {launches}")
+    return launches
+
+
+PHASE39_CHILD = r"""
+import json, os, sys
+import torch
+sys.path.insert(0, sys.argv[1])
+from nbodyax_torch.config import SimConfig
+from nbodyax_torch.driver import build_step, resolve_bh_config
+from nbodyax_torch.scenes import init_scene
+from nbodyax_torch.sharding import (make_group, make_sharded_bh_step,
+                                    make_sharded_step, shard_state)
+from nbodyax_torch.physics.step import PhysicsParams
+group = make_group(1, "cuda")
+dev = group.device
+out = {"backend": torch.distributed.get_backend()}
+for name, over in (("ring reference", {}),
+                   ("ring momentum adaptive", dict(collision_mode="momentum",
+                                                   adaptive_dt=True)),
+                   ("bh reference", dict(force_model="bh"))):
+    cfg = SimConfig(save_images=False, **over)
+    state = init_scene(cfg, device=dev)
+    cfg = resolve_bh_config(cfg, state)
+    p = PhysicsParams.from_config(cfg)
+    single = build_step(cfg, dev)
+    sharded = (make_sharded_bh_step if cfg.force_model == "bh"
+               else make_sharded_step)(cfg, p, group)
+    a, b = shard_state(state, group), state
+    for _ in range(3):
+        a, b = sharded(a), single(b)
+    torch.cuda.synchronize()
+    out[name] = all(torch.equal(x, y) for x, y in zip(a[:4], b[:4])) and \
+        bool(torch.equal(a.sim_time, b.sim_time))
+torch.distributed.destroy_process_group()
+print(json.dumps(out))
+"""
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_collectives_on_cuda():
+    """39. The port's collectives on CUDA tensors: a one-rank NCCL group in
+    a child process runs ``make_sharded_step`` (reference, and momentum
+    with adaptive dt: all_gather and all_min) and ``make_sharded_bh_step``
+    (all_gather and reduce_scatter) for 3 steps of the default scene,
+    bitwise against the single-device steps. With two cards or more, the
+    default scene through a torchrun CLI over min(4, cards) ranks against
+    one card: bh for 50 steps, bitwise at every 10th; exact for 200 steps,
+    merges equal at every 20th and positions at tests/test_ring.py's
+    trajectory gates at step 20. On one card it says that it did not
+    run."""
+    env = dict(os.environ, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+               LOCAL_WORLD_SIZE="1", MASTER_ADDR="localhost",
+               MASTER_PORT=str(free_port()))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", PHASE39_CHILD, HERE], env=env,
+                       capture_output=True, text=True, timeout=600)
+    check(r.returncode == 0, f"one-rank NCCL child failed:\n"
+                             f"{r.stdout[-2000:]}{r.stderr[-3000:]}")
+    res = json.loads(r.stdout.strip().splitlines()[-1])
+    print(f"one-rank NCCL group ({time.perf_counter() - t0:.1f} s in its "
+          f"process): {json.dumps(res)}")
+    check(res.pop("backend") == "nccl" and all(res.values()),
+          f"the sharded steps on a one-rank NCCL group differ from the "
+          f"single-device steps: {res}")
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        print("sharded_multicard: not run (1 card)")
+        return
+    ranks = min(4, cards)
+    work = tempfile.mkdtemp(prefix="multicard_")
+
+    def run(tag, launch, sets, steps, every):
+        ck = os.path.join(work, tag)
+        cmd = [sys.executable, *launch, "-m", "nbodyax_torch.cli", "--steps",
+               str(steps), "--no-images", "--set", f"checkpointEvery={every}",
+               "--set", "checkpointKeep=0", "--set", f"checkpointPath={ck}"]
+        for kv in sets:
+            cmd += ["--set", kv]
+        r = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                           timeout=900)
+        check(r.returncode == 0, f"{tag} run failed: {r.stderr[-3000:]}")
+        taken = re.findall(r"Time taken: ([0-9.]+)", r.stdout)
+        return ck, taken
+
+    sharded = ["-m", "torch.distributed.run", "--standalone",
+               "--nproc-per-node", str(ranks)]
+    for name, sets, steps, every in (("exact", [], 200, 20),
+                                     ("bh", ["forceModel=bh"], 50, 10)):
+        one, t1 = run(f"{name}_one", [], sets, steps, every)
+        many, tp = run(f"{name}_sharded", sharded,
+                       sets + [f"shards={ranks}"], steps, every)
+        rows = []
+        for f in sorted(os.listdir(one)):
+            a, b = np.load(os.path.join(many, f)), np.load(os.path.join(one, f))
+            n = b["pos"].shape[0]
+            rows.append((int(f[5:14]),
+                         all(np.array_equal(a[k][:n], b[k]) for k in
+                             ("pos", "vel", "mass", "radius")),
+                         np.array_equal(a["mass"][:n] > 0, b["mass"] > 0),
+                         float(np.abs(a["pos"][:n] - b["pos"]).max()),
+                         bool(np.allclose(a["pos"][:n], b["pos"], rtol=1e-4,
+                                          atol=1e-3))))
+        print(f"sharded_multicard {name}: {ranks} ranks on {ranks} cards "
+              f"against one card, default scene, {steps} steps: Time taken "
+              f"{tp} against {t1} s; (step, bitwise, alive masks equal, "
+              f"largest position difference, within test_ring.py's gates) "
+              f"{rows}")
+        if name == "bh":
+            # the cell-range step sums one nonzero term a lane: bitwise
+            check(all(r[1] for r in rows), "sharded bh across cards differs "
+                                           "from one card")
+        else:
+            # the ring's hop-ordered sums round differently from one launch;
+            # the merges must agree at every checkpoint and the positions
+            # within test_ring.py's gates over its horizon (step 20), after
+            # which close encounters amplify the rounding
+            check(all(r[2] for r in rows) and rows[0][4],
+                  "the multi-card exact run's merges or its first 20 steps "
+                  "left the single-card run")
 
 
 def kernel_name(mangled):
@@ -3108,6 +3540,7 @@ def main() -> int:
     bh3_times = phase_bh_timing(dev, arrays3_1m, bh3_cfg, BH3D_LEVELS,
                                 BH3D_S, BH3D_CI)
     resume_ref = []
+    shard = {}
 
     for name, phase in (
             ("28 compaction through graph windows", phase_compaction_graph),
@@ -3123,7 +3556,23 @@ def main() -> int:
             ("35 benchmark runners", phase_runners),
             ("35 suite config 6's tiers", lambda: phase_dense_bh_tiers(dev)),
             ("35 shooting example", phase_shooting_example),
-            ("35 --debug-nans", phase_debug_nans)):
+            ("35 --debug-nans", phase_debug_nans),
+            ("36 B3's cell slice", lambda: shard.update(
+                slice=phase_near_slice(dev, arrays_1m, arrays3_1m))),
+            ("37 cell-range bh, suite config 5's galaxy", lambda: shard.update(
+                launches=phase_cellrange(dev, *galaxy_4m(dev),
+                                         "suite config 5 galaxy N=4M"))),
+            ("37 cell-range bh, 3-D 1M scene", lambda: phase_cellrange(
+                dev, *resolved(bh3_cfg, arrays3_1m, dev), "3-D N=1M scene")),
+            ("38 ring fold, config 3's scene", lambda: phase_ring_fold(
+                dev, *exact_scene(dev, particle_count=131072), 8,
+                label="suite config 3 N=131072")),
+            ("38 ring fold, config 5's 4M galaxy, rank 0",
+             lambda: phase_ring_fold(
+                dev, *exact_scene(dev, particle_count=1 << 22,
+                                  scene="galaxy", softening=100.0), 8,
+                rows_of=[0], label="suite config 5 galaxy N=4M exact")),
+            ("39 the collectives on CUDA tensors", phase_collectives_on_cuda)):
         t0 = time.perf_counter()
         phase()
         print(f"phase {name}: {time.perf_counter() - t0:.1f} s")
@@ -3161,7 +3610,10 @@ def main() -> int:
          b4_3d_err, bh3_times["B4"]),
         ("slot_pack_moments_kernel_3d", "slotpack_kernel.cu",
          "nbodyax/physics/slotpack_pallas.py:123", b5_3d_launches,
-         b5_3d_err, bh3_times["B5"])]
+         b5_3d_err, bh3_times["B5"]),
+        ("near_kernel_slice", "near_kernel.cu",
+         "nbodyax/physics/near_pallas.py:116", shard["launches"],
+         shard["slice"][1], shard["slice"][0])]
     print(smi)
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": f"nbodyax_torch/csrc/{src}",

@@ -15,6 +15,14 @@ package), ``--resume auto`` from the newest one in ``checkpointPath``.
 With no ``nbodyConfig.txt`` in the working directory the built-in default
 scene runs. Prints the settings and the reference's final ``Time taken:``
 line.
+
+``--set shards=P`` runs one process a shard under ``torch.distributed``:
+
+    python -m torch.distributed.run --nproc-per-node P \
+        -m nbodyax_torch.cli --set shards=P [--device cpu] ...
+
+(NCCL on cards, one rank a card; gloo with ``--device cpu``). Rank 0
+alone prints, logs and writes frames and checkpoints.
 """
 
 from __future__ import annotations
@@ -55,6 +63,8 @@ def main(argv=None) -> int:
                     help="resume from checkpoint file (or 'auto' for latest "
                          "in checkpointPath)")
     args = ap.parse_args(argv)
+    # under torchrun only rank 0 speaks
+    args.quiet = args.quiet or os.environ.get("RANK", "0") != "0"
 
     try:
         device = resolve_device(args.device)
@@ -74,9 +84,10 @@ def main(argv=None) -> int:
             print(f"Error opening config file! ({args.config})",
                   file=sys.stderr)
             return 1
-        print("No nbodyConfig.txt found; running the built-in default scene "
-              "(pass --config or cd to the config's directory)",
-              file=sys.stderr)
+        if not args.quiet:
+            print("No nbodyConfig.txt found; running the built-in default "
+                  "scene (pass --config or cd to the config's directory)",
+                  file=sys.stderr)
         cfg = SimConfig()
     cfg = apply_overrides(cfg, args.set)
     if args.steps is not None:
@@ -93,8 +104,13 @@ def main(argv=None) -> int:
     elif args.resume:
         cfg.resume_from = args.resume
 
-    run_simulation(cfg, device=device, quiet=args.quiet,
-                   profile_dir=args.profile, debug_nans=args.debug_nans)
+    try:
+        run_simulation(cfg, device=device, quiet=args.quiet,
+                       profile_dir=args.profile, debug_nans=args.debug_nans)
+    finally:
+        import torch.distributed as dist
+        if dist.is_initialized():
+            dist.destroy_process_group()
     return 0
 
 

@@ -31,6 +31,14 @@
 // kernel writes a lane-merged channel-major block; that layout is a TPU
 // artefact.)
 //
+// The cell slice, the sharded bh step's form (near_pallas.py's cell_base /
+// ncells_eval, :369-389, and the kernel's cbase, :116-119): a launch may
+// evaluate only the cells [cell_base, cell_base + ncells_eval) and write
+// them as rows 0 .. ncells_eval - 1 of its output. The slot grid stays the
+// whole grid, so a window reads the cells beyond the slice's edges. A cell
+// runs exactly as it does in a launch over every cell, so its output is
+// bit for bit the same.
+//
 // What bounds it: FP32 work on the live pairs only, about 18 flops and one
 // rsqrt a pair in 2-D and 23 in 3-D (dz, its square and add, w * dz and
 // its add): 151,273,380 live pairs at the 2-D N = 1M scene (levels 8, S 40,
@@ -164,17 +172,17 @@ __host__ __device__ constexpr int blocks_per_sm(int mode, int dim) {
 template <int MODE, bool EPS_POS, int DIM>
 __global__ void __launch_bounds__(kWarps * 32, blocks_per_sm(MODE, DIM))
 near_kernel(const float* __restrict__ grid, int g, int ring, int S, int ci,
-            int cap, float eps2, float growth, float* __restrict__ out) {
+            int cap, float eps2, float growth, long long cell_base,
+            long long ncells_eval, float* __restrict__ out) {
   constexpr bool kVel = MODE == kElastic;
   constexpr int L = DIM + 4 + (kVel ? DIM : 0);
   constexpr int rest = kVel ? 2 * DIM : DIM;   // lane of the mass
   extern __shared__ float4 smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const long long ncells =
-      static_cast<long long>(g) * g * (DIM == 3 ? g : 1);
-  const long long cell = static_cast<long long>(blockIdx.x) * kWarps + warp;
-  if (cell >= ncells) return;          // the whole warp leaves together
+  const long long row = static_cast<long long>(blockIdx.x) * kWarps + warp;
+  if (row >= ncells_eval) return;      // the whole warp leaves together
+  const long long cell = cell_base + row;
   const int cx = static_cast<int>(cell % g);
   const int cyz = static_cast<int>(cell / g);
   const int cy = DIM == 3 ? cyz % g : cyz;
@@ -216,7 +224,7 @@ near_kernel(const float* __restrict__ grid, int g, int ring, int S, int ci,
     const bool live = has && r[rest] > 0.f;
     const int own_id = unpack_id(r[rest + 2], r[rest + 3]);
     if (has && !live) {                // pad or dead: the "none" outputs
-      float4* o = reinterpret_cast<float4*>(out + (cell * ci + islot) * kCh);
+      float4* o = reinterpret_cast<float4*>(out + (row * ci + islot) * kCh);
       const float hi = static_cast<float>(own_id >> 12);
       const float lo = static_cast<float>(own_id & 0xFFF);
       if constexpr (MODE != kMomentum) {
@@ -445,7 +453,7 @@ near_kernel(const float* __restrict__ grid, int g, int ring, int S, int ci,
 
       if (act && share == 0) {
         const int slot = i0 + ilane[j0 + jj];
-        float4* o = reinterpret_cast<float4*>(out + (cell * ci + slot) * kCh);
+        float4* o = reinterpret_cast<float4*>(out + (row * ci + slot) * kCh);
         const float hi = static_cast<float>(best_id >> 12);
         const float lo = static_cast<float>(best_id & 0xFFF);
         if constexpr (DIM == 3) {
@@ -470,40 +478,41 @@ near_kernel(const float* __restrict__ grid, int g, int ring, int S, int ci,
 
 template <int MODE, int DIM>
 int launch(const float* grid, int g, int ring, int S, int ci, int cap,
-           float eps2, float growth, float* out, cudaStream_t stream) {
-  const long long ncells =
-      static_cast<long long>(g) * g * (DIM == 3 ? g : 1);
-  const int blocks = static_cast<int>((ncells + kWarps - 1) / kWarps);
+           float eps2, float growth, long long cell_base,
+           long long ncells_eval, float* out, cudaStream_t stream) {
+  const int blocks = static_cast<int>((ncells_eval + kWarps - 1) / kWarps);
   const size_t smem = static_cast<size_t>(kWarps) *
                       warp_words(MODE == kElastic, cap, DIM) * 4;
   if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
   if (eps2 > 0.f) {
     near_kernel<MODE, true, DIM><<<blocks, kWarps * 32, smem, stream>>>(
-        grid, g, ring, S, ci, cap, eps2, growth, out);
+        grid, g, ring, S, ci, cap, eps2, growth, cell_base, ncells_eval,
+        out);
   } else {
     near_kernel<MODE, false, DIM><<<blocks, kWarps * 32, smem, stream>>>(
-        grid, g, ring, S, ci, cap, eps2, growth, out);
+        grid, g, ring, S, ci, cap, eps2, growth, cell_base, ncells_eval,
+        out);
   }
   return 0;
 }
 
 template <int DIM>
 int launch_mode(int mode, const float* grid, int g, int ring, int S, int ci,
-                int cap, float eps2, float growth, float* out,
-                cudaStream_t s) {
+                int cap, float eps2, float growth, long long cell_base,
+                long long ncells_eval, float* out, cudaStream_t s) {
   switch (mode) {
     case kReference:
       return launch<kReference, DIM>(grid, g, ring, S, ci, cap, eps2, growth,
-                                     out, s);
+                                     cell_base, ncells_eval, out, s);
     case kMomentum:
       return launch<kMomentum, DIM>(grid, g, ring, S, ci, cap, eps2, growth,
-                                    out, s);
+                                     cell_base, ncells_eval, out, s);
     case kElastic:
       return launch<kElastic, DIM>(grid, g, ring, S, ci, cap, eps2, growth,
-                                   out, s);
+                                     cell_base, ncells_eval, out, s);
     default:
-      return launch<kNone, DIM>(grid, g, ring, S, ci, cap, eps2, growth, out,
-                                s);
+      return launch<kNone, DIM>(grid, g, ring, S, ci, cap, eps2, growth,
+                                cell_base, ncells_eval, out, s);
   }
 }
 
@@ -518,25 +527,33 @@ extern "C" int nbodyax_near_shared_bytes(int mode, int cap, int dim) {
 
 // Plain C entry point for ctypes. `dim` is 2 or 3; `cap` (a multiple of
 // 32, at least 32) is the staging capacity from the wrapper's near_plan.
-// Returns cudaGetLastError() after the launch (0 on success); an unknown
-// mode or dim, a row width other than the mode's (dim + 4, or 2 dim + 4 in
-// elastic mode), ci > S or a bad capacity returns cudaErrorInvalidValue.
+// The launch evaluates the cells [cell_base, cell_base + ncells_eval) of
+// the grid into `out` f32[ncells_eval, ci, 8]; ncells_eval = 0 means
+// every cell (then cell_base must be 0). Returns cudaGetLastError() after
+// the launch (0 on success); an unknown mode or dim, a row width other
+// than the mode's (dim + 4, or 2 dim + 4 in elastic mode), ci > S, a bad
+// capacity or a slice that leaves the grid returns cudaErrorInvalidValue.
 extern "C" int nbodyax_slots_near(const float* grid, int g, int ring, int S,
                                   int ci, int L, int cap, int mode, int dim,
-                                  float eps2, float growth, float* out,
-                                  void* stream) {
+                                  float eps2, float growth,
+                                  long long cell_base, long long ncells_eval,
+                                  float* out, void* stream) {
+  const long long ncells =
+      static_cast<long long>(g) * g * (dim == 3 ? g : 1);
+  if (ncells_eval == 0) ncells_eval = ncells;
   if (mode < kReference || mode > kNone || (dim != 2 && dim != 3) ||
       L != (mode == kElastic ? 2 * dim : dim) + 4 || ci > S || cap < 32 ||
-      cap % 32 != 0) {
+      cap % 32 != 0 || cell_base < 0 || ncells_eval < 0 ||
+      cell_base + ncells_eval > ncells) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int err = 0;
-  if (g > 0) {
+  if (ncells_eval > 0) {
     err = dim == 3 ? launch_mode<3>(mode, grid, g, ring, S, ci, cap, eps2,
-                                    growth, out, s)
+                                    growth, cell_base, ncells_eval, out, s)
                    : launch_mode<2>(mode, grid, g, ring, S, ci, cap, eps2,
-                                    growth, out, s);
+                                    growth, cell_base, ncells_eval, out, s);
   }
   return err != 0 ? err : static_cast<int>(cudaGetLastError());
 }

@@ -1,11 +1,12 @@
 """Simulation driver: scene, windowed step loop, frames, logs, checkpoints,
 compaction, recovery and ``Time taken``.
 
-Counterpart of ``nbodyax/driver.py``. The state stays on one device. The
-host touch-points (log, checkpoint, compaction and energy points, the end
-of the run, and from a frame-misaligned start the next frame boundary) cut
-the run into windows (``_Schedule``, nbodyax's ``next_window``), and each
-window runs as one unit:
+Counterpart of ``nbodyax/driver.py``. The state stays on one device, or
+with ``shards > 1`` is split over the ranks of a ``torch.distributed``
+launch (below). The host touch-points (log, checkpoint, compaction and
+energy points, the end of the run, and from a frame-misaligned start the
+next frame boundary) cut the run into windows (``_Schedule``, nbodyax's
+``next_window``), and each window runs as one unit:
 
 - **CUDA** (``_GraphWindows``), the exact path and ``forceModel=bh``: a
   window is one replay of a captured ``torch.cuda.CUDAGraph``. The
@@ -60,6 +61,20 @@ reloading a checkpoint mends none of them. A sticky CUDA error (an illegal
 address) poisons the process's context, so its retries fail too and the
 last one surfaces; restarting the process with ``--resume auto`` is the
 recourse.
+
+**Shards** (``shards > 1``, nbodyax/driver.py:144-167, :299-304): one
+process a shard, under ``torch.distributed.run`` (``sharding.make_group``:
+the world size must be the shard count). Every rank builds the same whole
+state (scene or checkpoint), pads it to a multiple of the shard count and
+keeps its rows; the step is the exact ring or the cell-range bh step
+(``build_step``). Windows run eagerly (``_ShardedWindows``): capturing
+NCCL collectives into graphs is not ported. Every decision the ranks must
+share (the window schedule, log and probe points, bhAdapt's knobs,
+compaction, ``debug_nans``) is taken on the whole state, which every rank
+gathers at each window's end, so all ranks take the same collectives in
+the same order. Rank 0 alone prints, logs, profiles and writes frames and
+checkpoints. autoResume's in-process retry is not ported for shards
+(``NotImplementedError``); ``--resume`` works.
 
 ``forceModel=bh``: ``resolve_bh_config`` resolves the auto knobs against
 the starting state (``pick_levels``), each log point reads ``bh_health``
@@ -125,6 +140,7 @@ class RunResult:
     seconds: dict = dataclasses.field(default_factory=dict)
     # capacity after each compaction that changed it: [(step, capacity)]
     capacities: list = dataclasses.field(default_factory=list)
+    shards: int = 1         # ranks the bodies were sharded over
 
 
 class GraphCaptureError(RuntimeError):
@@ -139,13 +155,6 @@ _NOT_RETRIED = (FrameWriteError, NotImplementedError, KernelCompileError,
 
 # the fields ``debug_nans`` checks after each window, in its message's terms
 _NAN_FIELDS = ("pos", "vel", "mass", "radius", "conservation vec")
-
-
-def _check_supported(cfg: SimConfig) -> None:
-    """Raise on the config values the port does not run yet."""
-    if cfg.shards > 1:
-        raise NotImplementedError(
-            "shards > 1 is not ported yet (ROADMAP item A11)")
 
 
 def resolve_device(device) -> torch.device:
@@ -195,10 +204,20 @@ def resolve_bh_config(cfg: SimConfig, state: SimState,
     return cfg
 
 
-def build_step(cfg: SimConfig, device):
+def build_step(cfg: SimConfig, device, group=None):
     """The step function of ``cfg`` on ``device``: physics params and the
-    accumulator engine its backend and force model select."""
+    accumulator engine its backend and force model select. With
+    ``shards > 1`` it is the sharded step on this rank's rows (the exact
+    ring, or the cell-range bh step) of ``group`` (``make_group``'s by
+    default)."""
     p = PhysicsParams.from_config(cfg)
+    if cfg.shards > 1:
+        from nbodyax_torch.sharding import (make_group, make_sharded_bh_step,
+                                            make_sharded_step)
+        group = group or make_group(cfg.shards, device)
+        if cfg.force_model == "bh":
+            return make_sharded_bh_step(cfg, p, group)
+        return make_sharded_step(cfg, p, group)
     return make_step(p, accum_fn=build_accum_fn(cfg.backend, p, device, cfg))
 
 
@@ -388,15 +407,18 @@ def _nan_fields(s: SimState, vec: torch.Tensor) -> list:
     return [f for f, hit in zip(_NAN_FIELDS, hits) if hit]
 
 
-def _raise_first_nan(step, start: SimState, k: int) -> None:
+def _raise_first_nan(step, start: SimState, k: int, full=None) -> None:
     """A window of k steps from ``start`` ended with a NaN: run it again a
     step at a time, eagerly, and raise ``FloatingPointError`` naming the
     first step whose state holds one and its fields (``nbodyax``'s
-    ``--debug-nans`` re-runs the failing dispatch op by op)."""
+    ``--debug-nans`` re-runs the failing dispatch op by op). ``full`` maps
+    a rank's state to the whole one (sharded runs), so every rank tests
+    the same arrays and stops at the same step."""
     s = start
     for _ in range(k):
         s = step(s)
-        bad = _nan_fields(s, conservation_vec(s))
+        whole = full(s) if full is not None else s
+        bad = _nan_fields(whole, conservation_vec(whole))
         if bad:
             raise FloatingPointError(
                 f"debug_nans: NaN in {', '.join(bad)} after step {s.step} "
@@ -424,6 +446,38 @@ class _EagerWindows:
             if frames and it % self.k_img == 0:
                 out.append((it, render_state(self.state, self.cfg), None))
         return conservation_vec(self.state), out
+
+
+class _ShardedWindows(_EagerWindows):
+    """Eager windows on this rank's rows of a sharded state (``shards >
+    1``). ``full`` is the whole state, gathered at the end of each window
+    and at each frame step, on every rank: the conservation vector, the
+    frames, the probes, the checkpoints and compaction read it, so every
+    rank takes the same collectives in the same order and decides alike.
+    Only rank 0 renders."""
+
+    def __init__(self, step, full: SimState, cfg: SimConfig, k_img: int,
+                 group):
+        from nbodyax_torch.sharding import shard_state
+        super().__init__(step, shard_state(full, group), cfg, k_img)
+        self.group, self.full = group, full
+
+    def gather(self, s: SimState) -> SimState:
+        return SimState(*(self.group.all_gather(t) for t in s[:4]), s.step,
+                        s.sim_time)
+
+    def advance(self, k: int, frames: bool):
+        out = []
+        for _ in range(k):
+            it = self.state.step
+            self.state = self.step(self.state)
+            full = None
+            if frames and it % self.k_img == 0:
+                full = self.gather(self.state)
+                if self.group.rank == 0:
+                    out.append((it, render_state(full, self.cfg), None))
+        self.full = full if full is not None else self.gather(self.state)
+        return conservation_vec(self.full), out
 
 
 class _GraphWindows:
@@ -595,8 +649,15 @@ def run_simulation(cfg: SimConfig, *, device="cuda", quiet: bool = False,
     reloads the latest checkpoint and runs again, up to ``maxRetries``
     times (see the module docstring for what is never retried). nbodyax
     sleeps 15 s before each retry to let a crashed TPU worker settle, a
-    relay workaround that one card in one process has no use for."""
-    _check_supported(cfg)
+    relay workaround that one card in one process has no use for.
+
+    ``shards > 1``: every rank of a ``torch.distributed.run`` launch calls
+    this with the same config (see the module docstring); each returns the
+    whole final state."""
+    if cfg.shards > 1 and cfg.auto_resume:
+        raise NotImplementedError(
+            "autoResume under shards > 1 is not ported yet (ROADMAP A11, "
+            "queue item 3): restart the launch with --resume auto")
     dev = resolve_device(device)
     attempts = 1 + (cfg.max_retries if cfg.auto_resume and
                     cfg.checkpoint_every else 0)
@@ -634,6 +695,14 @@ def _run_simulation_once(cfg: SimConfig, dev: torch.device, *, quiet: bool,
                   "bh_comp_cap": cfg.bh_comp_cap == 0}
     seconds = dict.fromkeys(("scene", "capture", "windows", "frames",
                              "checkpoints", "compaction"), 0.0)
+    group = None
+    if cfg.shards > 1:
+        from nbodyax_torch.sharding import make_group, pad_to_shards
+        group = make_group(cfg.shards, dev)
+        dev = group.device
+    # rank 0 alone prints, logs, profiles and writes frames and checkpoints
+    root = group is None or group.rank == 0
+    quiet = quiet or not root
     if state is None:
         if cfg.resume_from:
             state = load_checkpoint(cfg.resume_from, device=dev)
@@ -645,6 +714,9 @@ def _run_simulation_once(cfg: SimConfig, dev: torch.device, *, quiet: bool,
     else:
         state = make_state(*state[:4], step=int(state.step),
                            sim_time=float(state.sim_time), device=dev)
+    if group is not None:
+        # every rank holds the same whole state; the runner keeps its rows
+        state = pad_to_shards(state, group.size)
     seconds["scene"] = time.perf_counter() - t_start
     cfg = resolve_bh_config(cfg, state, quiet=quiet)
     bh = cfg.force_model == "bh"
@@ -653,11 +725,14 @@ def _run_simulation_once(cfg: SimConfig, dev: torch.device, *, quiet: bool,
     k_img = (cfg.save_image_every
              if cfg.save_images and cfg.save_image_every > 0 else 0)
     sched = _Schedule(cfg, k_img)
-    writer = FrameWriter(cfg.image_path) if k_img else None
-    logger = JsonlLogger(cfg.log_path, echo=not quiet)
+    writer = FrameWriter(cfg.image_path) if k_img and root else None
+    logger = JsonlLogger(cfg.log_path if root else "", echo=not quiet)
     runner_class = _runner_class(dev, eager)
 
     def new_runner(c: SimConfig, s: SimState):
+        if group is not None:
+            return _ShardedWindows(build_step(c, dev, group), s, c, k_img,
+                                   group)
         if runner_class is _GraphWindows:
             return _GraphWindows(build_step(c, dev), s, c, k_img,
                                  sched.stride, writer)
@@ -679,15 +754,21 @@ def _run_simulation_once(cfg: SimConfig, dev: torch.device, *, quiet: bool,
             old, runner = runner, new_runner(c, runner.state)
             drop_runner(old)
         else:
-            runner.step = build_step(c, dev)
+            runner.step = build_step(c, dev, group)
         return c
 
     def checkpoint(s: SimState):
         t0 = time.perf_counter()
-        save_checkpoint(cfg.checkpoint_path, s, keep_last=cfg.checkpoint_keep,
-                        milestone_every=cfg.checkpoint_milestone_every,
-                        extra=_bh_ck_extra(cfg))
+        if root:
+            save_checkpoint(cfg.checkpoint_path, s,
+                            keep_last=cfg.checkpoint_keep,
+                            milestone_every=cfg.checkpoint_milestone_every,
+                            extra=_bh_ck_extra(cfg))
         seconds["checkpoints"] += time.perf_counter() - t0
+
+    def whole() -> SimState:
+        """The whole state after the last window, on every rank."""
+        return runner.state if group is None else runner.full
 
     runner = new_runner(cfg, state)
     # without bhAdapt the probe only reads bh_health and never drifts
@@ -701,7 +782,7 @@ def _run_simulation_once(cfg: SimConfig, dev: torch.device, *, quiet: bool,
         # a fault before the first cadence checkpoint must be resumable too
         checkpoint(state)
     prof = None
-    if profile_dir:
+    if profile_dir and root:
         from torch.profiler import ProfilerActivity, profile
         prof = profile(activities=[ProfilerActivity.CPU] + (
             [ProfilerActivity.CUDA] if dev.type == "cuda" else []))
@@ -718,19 +799,20 @@ def _run_simulation_once(cfg: SimConfig, dev: torch.device, *, quiet: bool,
             start = _copy_state(runner.state) if debug_nans else None
             t0 = time.perf_counter()
             meter.start()
-            vec, imgs = runner.advance(k, writer is not None)
+            vec, imgs = runner.advance(k, k_img > 0)
             win_wall = meter.stop(k)
             v = vec.cpu()
             seconds["windows"] += time.perf_counter() - t0
-            if debug_nans and _nan_fields(runner.state, vec):
-                _raise_first_nan(runner.step, start, k)
+            state = whole()
+            if debug_nans and _nan_fields(state, vec):
+                _raise_first_nan(runner.step, start, k,
+                                 None if group is None else runner.gather)
             t0 = time.perf_counter()
             for it, img, ready in imgs:
                 writer.submit(it, img, ready)
             seconds["frames"] += time.perf_counter() - t0
             frames += len(imgs)
             iteration += k
-            state = runner.state
             alive_now = float(v[0])
             log_due = cfg.log_every and iteration % cfg.log_every == 0
             if (probe is not None and cfg.bh_adapt and not log_due
@@ -756,7 +838,8 @@ def _run_simulation_once(cfg: SimConfig, dev: torch.device, *, quiet: bool,
                         cfg = adapt(new_cfg)
                     scal["bh_overflow"] = int(h[0] + h[1])
                     scal["bh_giant_excess"] = int(h[6])
-                if cfg.energy_every and iteration % cfg.energy_every == 0:
+                if (cfg.energy_every and iteration % cfg.energy_every == 0
+                        and root):
                     # O(N^2), as dear as a force pass: at its own cadence
                     pe = float(potential_energy(state, eps=cfg.softening))
                     scal["potential_energy"] = pe
@@ -799,6 +882,8 @@ def _run_simulation_once(cfg: SimConfig, dev: torch.device, *, quiet: bool,
                     probe.prev_overflow = probe.prev_dropped = 0.0
                 if probe is not None:
                     probe.last_probe_alive = alive_now
+                if group is not None:
+                    new_state = pad_to_shards(new_state, group.size)
                 drop_runner(runner)
                 runner = new_runner(cfg, new_state)
                 state = new_state
@@ -823,7 +908,7 @@ def _run_simulation_once(cfg: SimConfig, dev: torch.device, *, quiet: bool,
     wall = time.perf_counter() - t_start
     if not quiet:
         print(f"Time taken: {wall:.4f}")  # the reference's final line
-    return RunResult(state=state, steps_per_sec=meter.steps_per_sec,
+    return RunResult(state=whole(), steps_per_sec=meter.steps_per_sec,
                      pairs_per_sec=meter.pairs_per_sec, wall_seconds=wall,
                      frames_written=frames, windows=windows, seconds=seconds,
-                     capacities=capacities)
+                     capacities=capacities, shards=cfg.shards)

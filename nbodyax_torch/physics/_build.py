@@ -61,6 +61,7 @@ def _nvcc() -> str:
 def _bind(fwd: ctypes.CDLL, bwd: ctypes.CDLL, near: ctypes.CDLL,
           pack: ctypes.CDLL, cond: ctypes.CDLL) -> SimpleNamespace:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    ll = ctypes.c_longlong
     ip = ctypes.POINTER(ctypes.c_int)
     zp = ctypes.POINTER(ctypes.c_size_t)
     fns = {}
@@ -72,7 +73,7 @@ def _bind(fwd: ctypes.CDLL, bwd: ctypes.CDLL, near: ctypes.CDLL,
              [p, i, p, i, i, i, p, i, i, f, f, i, i, p, p, p, p, p]),
             (bwd, "nbodyax_pair_backward_launch_shape", [i, i, ip, ip]),
             (near, "nbodyax_slots_near",
-             [p, i, i, i, i, i, i, i, i, f, f, p, p]),
+             [p, i, i, i, i, i, i, i, i, f, f, ll, ll, p, p]),
             (near, "nbodyax_near_shared_bytes", [i, i, i]),
             (pack, "nbodyax_slot_pack", [p, i, p, p, i, i, p, p]),
             (pack, "nbodyax_slot_pack_moments",

@@ -28,8 +28,14 @@ One tier decision a step serves every completion pass.
 ``near_kernel="auto"`` (the ``bhPallas`` knob) runs B3 and B5 (or B4)
 through their wrappers: the kernels on a CUDA tensor, their plain versions
 on a CPU tensor; ``"on"`` demands a CUDA tensor; ``"off"`` runs the plain
-torch engines on any device. The sharding hooks of nbodyax
-(``cell_range`` / ``comp_range`` / ``shard``) are not ported (ROADMAP A11).
+torch engines on any device.
+
+The sharded step's hooks are nbodyax's: ``bh_cellrange_accumulators(shard,
+nshards)`` evaluates one contiguous 1/nshards slice of the finest cells
+(``cell_range``, host ints) and 1/nshards of the completion list
+(``comp_range``) on the whole body set, so each body's accumulators come
+from exactly one shard and the others hold the identity
+(``sharding/bh.py`` sums them).
 """
 
 from __future__ import annotations
@@ -46,7 +52,8 @@ from nbodyax_torch.physics.bh_grid import (_cell_sizes, _cells, _extent,
                                            _gathered_pair_accum,
                                            _partner_structure, _unpack_id)
 from nbodyax_torch.physics.fmm import (_annulus_force_bodies,
-                                       _annulus_force_cells, _far_force,
+                                       _annulus_force_cells, _cell_slice,
+                                       _far_force,
                                        _far_force_cells, _fmm_local_table,
                                        _l2p, _l2p_slots, _level_grids)
 from nbodyax_torch.physics.graph_if import run_if
@@ -59,7 +66,8 @@ from nbodyax_torch.physics.pairwise import (PairAccumulators,
 from nbodyax_torch.physics.slotpack_kernel import (build_slot_grid_reference,
                                                    pack_slots)
 
-__all__ = ["bh_accumulators", "auto_levels", "auto_neighbor_k", "pick_levels",
+__all__ = ["bh_accumulators", "bh_cellrange_accumulators", "auto_levels",
+           "auto_neighbor_k", "pick_levels",
            "overflow_count", "bh_health", "slot_cap", "needed_neighbor_k",
            "giant_collision_accumulators", "resolve_near_kernel"]
 
@@ -145,13 +153,18 @@ def _channels(mode: str) -> tuple:
                          "elastic": ("dv",)}.get(mode, ())
 
 
-def _completion_list(over, n: int, comp_cap: int):
+def _completion_list(over, n: int, comp_cap: int, comp_range=None):
     """nbodyax's ``_completion_slice``: the sorted positions of the
     crowded bodies in order, in a list of the static length
     ``_completion_cap``, the rest filled with ``n``. Bodies past the budget
-    are dropped (``bh_health`` counts them)."""
-    return torch.nonzero_static(over, size=_completion_cap(n, comp_cap),
-                                fill_value=n)[:, 0]
+    are dropped (``bh_health`` counts them). ``comp_range`` (base, length,
+    total): the slice [base, base + length) of a list of length total."""
+    if comp_range is None:
+        return torch.nonzero_static(over, size=_completion_cap(n, comp_cap),
+                                    fill_value=n)[:, 0]
+    base, length, total = comp_range
+    return torch.nonzero_static(over, size=total,
+                                fill_value=n)[base:base + length, 0]
 
 
 def _completion_rows(order, psx, n: int):
@@ -234,10 +247,11 @@ def _near_field(i_pos, i_vel, i_mass, i_radius, i_ids, pos, vel, mass,
 
 
 def _slot_unsort_idx(pos, mass, ext, g: int, order, starts, s_cell,
-                     ncells: int, ci_cap: int, nslots: int):
+                     ncells: int, ci_cap: int, nslots: int, cell_range=None):
     """Body -> slot map for gathering per-slot results back into body
-    order (slot = cell * ci_cap + rank): (valid, idx), idx = ``nslots`` (a
-    pad row) where the body has no slot."""
+    order (slot = (cell - first cell of ``cell_range``) * ci_cap + rank):
+    (valid, idx), idx = ``nslots`` (a pad row) where the body has no slot
+    or its cell lies outside the range."""
     n = pos.shape[0]
     srank = (torch.arange(n, device=pos.device)
              - starts[torch.clamp(s_cell, 0, ncells - 1)])
@@ -246,31 +260,34 @@ def _slot_unsort_idx(pos, mass, ext, g: int, order, starts, s_cell,
     alive = mass > 0
     cellb = torch.where(alive, _flatten_cells(_cells(pos, ext, g), g),
                         torch.full_like(rank_b, ncells))
-    valid = alive & (rank_b >= 0) & (rank_b < ci_cap) & (cellb < ncells)
-    return valid, torch.where(valid, cellb * ci_cap + rank_b,
+    c0, nc = _cell_slice(ncells, cell_range)
+    rel = cellb - c0
+    valid = alive & (rank_b >= 0) & (rank_b < ci_cap) & (rel >= 0) & (rel < nc)
+    return valid, torch.where(valid, rel * ci_cap + rank_b,
                               torch.full_like(rank_b, nslots))
 
 
 def _rows_engine(structure, ncells: int, g: int, ring: int, k: int,
                  ci_cap: int, chunk: int, dim: int, eps2, growth_rate,
-                 mode: str):
-    """The per-cell ``rows`` engine: each cell's first ci_cap bodies
-    against up to ``k`` partners of each window row, gathered once a cell.
-    Returns the packed channels [ncells * ci_cap, 8] (``near_kernel``
-    layout)."""
+                 mode: str, cell_range=None):
+    """The per-cell ``rows`` engine: the first ci_cap bodies of each cell
+    of ``cell_range`` (every cell for None) against up to ``k`` partners
+    of each window row, gathered once a cell. Returns the packed channels
+    [cells * ci_cap, 8] (``near_kernel`` layout)."""
     _, _, starts, ends, sf = structure
     n = sf.shape[0] - 1
     dev = sf.device
     need_vel = mode == "elastic"
     rest = 2 * dim if need_vel else dim
     L = sf.shape[1]
-    cc = max(1, min(ncells, (2 * chunk) // ci_cap))
+    c_first, nc = _cell_slice(ncells, cell_range)
+    cc = max(1, min(nc, (2 * chunk) // ci_cap))
     cc = 1 << (cc.bit_length() - 1)
     B = cc * ci_cap
     ks = torch.arange(k, device=dev)[None, :]
     slots_i = torch.arange(ci_cap, device=dev)[None, :]
     out = []
-    for base in range(0, ncells, cc):
+    for base in range(c_first, c_first + nc, cc):
         cid = base + torch.arange(cc, device=dev)
         coords, rem = [], cid
         for _ in range(dim):
@@ -317,8 +334,8 @@ def _near_field_cells(pos, vel, mass, radius, ext, levels: int, ring: int,
                       ci_cap: int = _CI_CAP, chunk: int = 8192,
                       _structure=None, near: str = "rows",
                       comp_cap: int = 0, kernel: bool = False, _fslot=None,
-                      far_slot_lanes=None, _completion=None
-                      ) -> PairAccumulators:
+                      far_slot_lanes=None, _completion=None,
+                      cell_range=None, comp_range=None) -> PairAccumulators:
     """Near field of the FULL body set by per-CELL passes (nbodyax's
     ``_near_field_cells``): each cell's first ``ci_cap`` bodies through
     the ``rows`` engine (gathered row windows, ``k`` a row) or the
@@ -328,7 +345,11 @@ def _near_field_cells(pos, vel, mass, radius, ext, levels: int, ring: int,
     (2 ring + 1) S a row for slots, ``k`` for rows), up to the completion
     budget, under the tiers of ``_Tiers``. ``far_slot_lanes`` ([nslots,
     dim], per-slot far forces) rides the same unsort. ``_completion``: the
-    caller's ``_Tiers``, so a step lists the crowded bodies once."""
+    caller's ``_Tiers``, so a step lists the crowded bodies once.
+    ``cell_range`` (first cell, count) restricts the per-cell pass, and
+    ``comp_range`` (``_completion_list``) the completion pass, to one
+    shard's slices; the slot grid stays global, and every other body keeps
+    the identity."""
     eps2 = float(np.float32(eps2))
     growth_rate = float(np.float32(growth_rate))
     use_slots = near == "slots"
@@ -341,18 +362,21 @@ def _near_field_cells(pos, vel, mass, radius, ext, levels: int, ring: int,
                                     mode == "elastic"))
     order, s_cell, starts, ends, sf = structure
     S = max(k, ci_cap)
-    nslots = ncells * ci_cap
+    c_first, nc = _cell_slice(ncells, cell_range)
+    nslots = nc * ci_cap
     kw = dict(mode=mode, eps2=eps2, growth=growth_rate, g=g, ring=ring,
               ci=ci_cap)
     if use_slots:
         fslot = _fslot if _fslot is not None else build_slot_grid_reference(
             sf, starts, ends, n, ncells, S)
+        if cell_range is not None:
+            kw.update(cell_base=c_first, ncells_eval=nc)
         raw = (slots_near if kernel else slots_near_reference)(
             fslot, dim=dim, **kw)
         packed = raw.reshape(nslots, -1)
     else:
         packed = _rows_engine(structure, ncells, g, ring, k, ci_cap, chunk,
-                              dim, eps2, growth_rate, mode)
+                              dim, eps2, growth_rate, mode, cell_range)
     nlane = {"reference": dim + 3, "momentum": dim + 3,
              "elastic": 2 * dim}.get(mode, dim)
     packed = packed[:, :nlane]
@@ -361,7 +385,8 @@ def _near_field_cells(pos, vel, mass, radius, ext, levels: int, ring: int,
     packed = torch.cat([packed, packed.new_zeros((1, packed.shape[1]))])
 
     valid, slot_idx = _slot_unsort_idx(pos, mass, ext, g, order, starts,
-                                       s_cell, ncells, ci_cap, nslots)
+                                       s_cell, ncells, ci_cap, nslots,
+                                       cell_range)
     # one more row, n: the completion's fill entries write it, and it goes
     valid = F.pad(valid, (0, 1))
     slot_idx = F.pad(slot_idx, (0, 1), value=nslots)
@@ -390,7 +415,8 @@ def _near_field_cells(pos, vel, mass, radius, ext, levels: int, ring: int,
 
     if _completion is None:
         _completion = _Tiers(_completion_list(
-            _over_slots(s_cell, starts, ncells, ci_cap), n, comp_cap), n)
+            _over_slots(s_cell, starts, ncells, ci_cap), n, comp_cap,
+            comp_range), n)
     row_k = (2 * ring + 1) * S if use_slots else k
 
     def complete(psx):
@@ -420,27 +446,31 @@ def _giant_key(mass, radius, ext, levels: int, ring: int):
 
 def giant_collision_accumulators(pos, vel, mass, radius, *, ext, levels: int,
                                  ring: int, growth_rate, mode: str,
-                                 n_giants: int, chunk: int = 16384
-                                 ) -> PairAccumulators:
+                                 n_giants: int, chunk: int = 16384,
+                                 cell_range=None) -> PairAccumulators:
     """Exact COLLISION channels (no gravity) for the ``n_giants``
     largest-radius live bodies among those with radius > ring * cell / 2,
     against every body, over the pairs the near window does NOT cover
     (finest-cell Chebyshev distance > ring): pass 1 gives every body its
     channels from the giants, pass 2 each giant its channels from the
     non-giant bodies. Returns full-length accumulators (identity rows for
-    untouched bodies). See ``_giant_pass`` for the list and its tiers."""
+    untouched bodies). See ``_giant_pass`` for the list and its tiers.
+    ``cell_range`` (first cell, count) keeps only the rows of bodies whose
+    finest cell lies in it: the giant set stays global, so a body in the
+    range is still eaten by a giant outside it, whose own row belongs to
+    its cell's shard."""
     ids = torch.arange(pos.shape[0], dtype=torch.int32, device=pos.device)
     out = PairAccumulators(*(t.clone() for t in empty_accumulators(
         ids, dim=pos.shape[-1])))
     _giant_pass(pos, vel, mass, radius, ext=ext, levels=levels, ring=ring,
                 growth_rate=growth_rate, mode=mode, n_giants=n_giants,
-                chunk=chunk, into=out)
+                chunk=chunk, into=out, cell_range=cell_range)
     return out
 
 
 def _giant_pass(pos, vel, mass, radius, *, ext, levels: int, ring: int,
                 growth_rate, mode: str, n_giants: int, chunk: int,
-                into: PairAccumulators) -> None:
+                into: PairAccumulators, cell_range=None) -> None:
     """Combine the giant-collision channels into ``into``, in place.
 
     The giant list is nbodyax's: the top ``B = min(n, max(8, n_giants))``
@@ -462,7 +492,7 @@ def _giant_pass(pos, vel, mass, radius, *, ext, levels: int, ring: int,
         run_if(pred, lambda t=t: _giant_tier(
             pos, vel, mass, radius, key, t, ext=ext, levels=levels,
             ring=ring, growth_rate=growth_rate, mode=mode, chunk=chunk,
-            into=into))
+            into=into, cell_range=cell_range))
         lo = t
 
 
@@ -476,8 +506,10 @@ def _giant_list(key, count: int):
 
 def _giant_tier(pos, vel, mass, radius, key, count: int, *, ext,
                 levels: int, ring: int, growth_rate, mode: str, chunk: int,
-                into: PairAccumulators) -> None:
-    """One tier of ``_giant_pass``: the top ``count`` list."""
+                into: PairAccumulators, cell_range=None) -> None:
+    """One tier of ``_giant_pass``: the top ``count`` list. Under a
+    ``cell_range`` only the rows of its bodies are written: pass 1 masks
+    the other rows' pairs, pass 2 the giants outside it."""
     n = pos.shape[0]
     dim = pos.shape[-1]
     dev = pos.device
@@ -489,9 +521,15 @@ def _giant_tier(pos, vel, mass, radius, key, count: int, *, ext,
     gids = topi.to(torch.int32)
     cells = torch.stack(_cells(pos, ext, g), -1)
     gcells = cells[topi]
+    is_giant = torch.zeros((n + 1,), dtype=torch.bool, device=dev).index_fill_(
+        0, torch.where(gmask, topi, n), True)[:n]
+    owned = None
+    if cell_range is not None:
+        flat = _flatten_cells(tuple(cells[:, d] for d in range(dim)), g)
+        owned = (flat >= cell_range[0]) & (flat < cell_range[0]
+                                           + cell_range[1])
+        gmask = gmask & owned[topi]
     safe = torch.where(gmask, topi, n)         # masked rows go to row n
-    is_giant = torch.zeros((n + 1,), dtype=torch.bool,
-                           device=dev).index_fill_(0, safe, True)[:n]
     gr = float(np.float32(growth_rate))
     c = max(8, min(n, chunk))
     # pass 1's rows are independent: chunks of about 2^22 pairs
@@ -500,18 +538,23 @@ def _giant_tier(pos, vel, mass, radius, key, count: int, *, ext,
     def uncovered(ci, cj):
         return (ci[:, None, :] - cj[None, :, :]).abs().amax(-1) > ring
 
+    def pass1_mask(s):
+        pm = uncovered(cells[s:s + c1], gcells)
+        return pm if owned is None else pm & owned[s:s + c1, None]
+
     kw = dict(eps2=0.0, growth_rate=gr, mode=mode, with_force=False)
     acc1 = [pair_accumulators_chunk(
         pos[s:s + c1], vel[s:s + c1], mass[s:s + c1], radius[s:s + c1],
-        ids[s:s + c1], pg, vg, mg, rg, gids,
-        pair_mask=uncovered(cells[s:s + c1], gcells), **kw)
+        ids[s:s + c1], pg, vg, mg, rg, gids, pair_mask=pass1_mask(s), **kw)
         for s in range(0, n, c1)]
     acc1 = PairAccumulators(*(torch.cat(xs) for xs in zip(*acc1)))
+    # pass 2's giants: the ones whose rows this call writes
+    mg2 = mg if owned is None else torch.where(gmask, mg, 0.0)
     acc2 = None
     for s in range(0, n, c):
         pm = uncovered(gcells, cells[s:s + c]) & ~is_giant[s:s + c][None, :]
         part = pair_accumulators_chunk(
-            pg, vg, mg, rg, gids, pos[s:s + c], vel[s:s + c], mass[s:s + c],
+            pg, vg, mg2, rg, gids, pos[s:s + c], vel[s:s + c], mass[s:s + c],
             radius[s:s + c], ids[s:s + c], pair_mask=pm, **kw)
         acc2 = part if acc2 is None else combine_accumulators(acc2, part)
     full2 = empty_accumulators(
@@ -527,24 +570,38 @@ def _bh_cells_eval(pos, vel, mass, radius, *, eps2, growth_rate, mode: str,
                    levels: int, ring: int, neighbor_k: int, order: int,
                    chunk: int, ci_cap: int = 0, far: str = "fmm",
                    near: str = "rows", comp_cap: int = 0,
-                   kernel: bool = False,
-                   n_giants: int = 0) -> PairAccumulators:
-    """Near + far per-cell evaluation over the full body set
-    (``_bh_cells_eval`` without its shard hooks). ``kernel`` routes the
-    slots engine through B3 and B5 (B4 when no moments are wanted)."""
+                   kernel: bool = False, n_giants: int = 0,
+                   shard: int = 0, nshards: int = 1) -> PairAccumulators:
+    """Near + far per-cell evaluation over the full body set, or with
+    ``nshards`` > 1 over shard ``shard``'s contiguous 1/nshards slice of
+    the finest cells and its 1/nshards of the completion list: each body's
+    accumulators then come whole from the one shard that owns its cell (or
+    its completion entry), and every other body keeps the identity.
+    ``kernel`` routes the slots engine through B3 and B5 (B4 when no
+    moments are wanted)."""
     n = pos.shape[0]
     dim = pos.shape[-1]
     alive = mass > 0
     ext = _extent(pos, alive)
     g = 1 << levels
     ncells = g ** dim
+    cell_range = comp_range = None
+    if nshards > 1:
+        if ncells % nshards:
+            raise ValueError(
+                f"shards ({nshards}) must divide the finest grid's {ncells} "
+                f"cells: use a power-of-two shard count or raise bhLevels")
+        comp_len = -(-_completion_cap(n, comp_cap) // nshards)
+        cell_range = (shard * (ncells // nshards), ncells // nshards)
+        comp_range = (shard * comp_len, comp_len, comp_len * nshards)
+    c0, nc = _cell_slice(ncells, cell_range)
     structure = _partner_structure(pos, vel, mass, radius, ext, g,
                                    mode == "elastic")
     order_idx, s_cell, starts, ends, sf = structure
     c = min(chunk, n)
     cap = ci_cap or slot_cap(n, ncells)
     over = _over_slots(s_cell, starts, ncells, cap)
-    tiers = _Tiers(_completion_list(over, n, comp_cap), n)
+    tiers = _Tiers(_completion_list(over, n, comp_cap, comp_range), n)
 
     S_full = max(neighbor_k, cap)
     fslot = finest_mom = None
@@ -569,17 +626,19 @@ def _bh_cells_eval(pos, vel, mass, radius, *, eps2, growth_rate, mode: str,
                                      order, grids=grids)
         aslots, _ = _annulus_force_cells(packed_finest, ext, levels, ring,
                                          ring + 1, eps2, 2, structure, cap,
-                                         fslot=fslot)
+                                         fslot=fslot, cell_range=cell_range)
         if near == "slots":
-            l2p_sl = _l2p_slots(local_tab, fslot[:, :cap, 0:dim], ext,
-                                levels, dim)
-            far_slot_lanes = l2p_sl.reshape(ncells * cap, dim) + aslots
+            l2p_sl = _l2p_slots(local_tab[c0:c0 + nc],
+                                fslot[c0:c0 + nc, :cap, 0:dim], ext, levels,
+                                dim, cell0=c0)
+            far_slot_lanes = l2p_sl.reshape(nc * cap, dim) + aslots
 
     near_acc = _near_field_cells(
         pos, vel, mass, radius, ext, levels, ring, eps2, growth_rate, mode,
         neighbor_k, ci_cap=cap, chunk=c, _structure=structure, near=near,
         comp_cap=comp_cap, kernel=kernel, _fslot=fslot,
-        far_slot_lanes=far_slot_lanes, _completion=tiers)
+        far_slot_lanes=far_slot_lanes, _completion=tiers,
+        cell_range=cell_range)
 
     zero = torch.zeros((), dtype=torch.float32, device=pos.device)
     if far == "fmm":
@@ -591,9 +650,14 @@ def _bh_cells_eval(pos, vel, mass, radius, *, eps2, growth_rate, mode: str,
             over_body = torch.zeros((n,), dtype=torch.bool, device=pos.device)
             over_body[order_idx] = over
             keep = alive & ~over_body
+            if cell_range is not None:
+                # dead bodies sit in bucket ncells, outside every range
+                cell = torch.where(alive, _flatten_cells(_cells(pos, ext, g),
+                                                         g), ncells)
+                keep = keep & (cell >= c0) & (cell < c0 + nc)
             a_valid, a_idx = _slot_unsort_idx(pos, mass, ext, g, order_idx,
                                               starts, s_cell, ncells, cap,
-                                              aslots.shape[0])
+                                              aslots.shape[0], cell_range)
             a_pad = torch.cat([aslots, aslots.new_zeros((1, dim))])
             far_v = F.pad(torch.where(a_valid[:, None], a_pad[a_idx], zero)
                           + torch.where(keep[:, None], far_all, zero),
@@ -610,7 +674,8 @@ def _bh_cells_eval(pos, vel, mass, radius, *, eps2, growth_rate, mode: str,
                                finest=finest_mom if order >= 2 else None)
         fslots, fsidx = _far_force_cells(pos, mass, ext, levels, ring, eps2,
                                          order, structure, cap,
-                                         grids=d_grids, fslot=fslot)
+                                         grids=d_grids, fslot=fslot,
+                                         cell_range=cell_range)
         far_v = torch.zeros((n + 1, dim), dtype=torch.float32,
                             device=pos.device)
         far_v[fsidx] = fslots
@@ -629,7 +694,8 @@ def _bh_cells_eval(pos, vel, mass, radius, *, eps2, growth_rate, mode: str,
     if n_giants and mode != "none":
         _giant_pass(pos, vel, mass, radius, ext=ext, levels=levels,
                     ring=ring, growth_rate=growth_rate, mode=mode,
-                    n_giants=n_giants, chunk=max(chunk, 4096), into=out)
+                    n_giants=n_giants, chunk=max(chunk, 4096), into=out,
+                    cell_range=cell_range)
     return out
 
 
@@ -638,13 +704,14 @@ def bh_accumulators(pos, vel, mass, radius, *, eps: float = 0.0,
                     levels: int = 0, ring: int = 1, neighbor_k: int = 64,
                     order: int = 2, chunk: int = 8192, ci_cap: int = 0,
                     far: str = "fmm", near: str = "rows", comp_cap: int = 0,
-                    near_kernel: str = "auto",
-                    n_giants: int = 1024) -> PairAccumulators:
+                    near_kernel: str = "auto", n_giants: int = 1024,
+                    shard: int = 0, nshards: int = 1) -> PairAccumulators:
     """Drop-in accum_fn (the interface of ``pair_accumulators``):
     approximate far-field force, exact near-field force and collision
     channels, and exact any-distance collisions for the ``n_giants``
     largest-radius bodies (0 disables). ``near_kernel`` is the
-    ``bhPallas`` knob (``resolve_near_kernel``)."""
+    ``bhPallas`` knob (``resolve_near_kernel``); ``shard`` and ``nshards``
+    are ``bh_cellrange_accumulators``'s."""
     if far not in ("fmm", "direct"):
         raise ValueError(f"unknown bhFar value {far!r}")
     if near not in ("rows", "slots"):
@@ -661,7 +728,22 @@ def bh_accumulators(pos, vel, mass, radius, *, eps: float = 0.0,
         ring=ring, neighbor_k=neighbor_k, order=order, chunk=chunk,
         ci_cap=ci_cap, far=far, near=near, comp_cap=comp_cap,
         kernel=resolve_near_kernel(near_kernel, near, pos.device),
-        n_giants=n_giants)
+        n_giants=n_giants, shard=shard, nshards=nshards)
+
+
+def bh_cellrange_accumulators(pos, vel, mass, radius, shard: int,
+                              nshards: int, **kw) -> PairAccumulators:
+    """One cell-range shard's part of the global accumulators: full-length
+    accumulators that hold real values only for the bodies whose finest
+    cell lies in shard ``shard``'s contiguous 1/nshards slice of the cells
+    (or whose completion entry lies in its slice of that list), and the
+    identity elsewhere. Every shard calls it on the same all-gathered state
+    with its own index; the slices are disjoint, so the shards' parts sum
+    once every lane is rebased to identity 0 (``sharding/bh.py``). ``kw``
+    are ``bh_accumulators``'s knobs. Raises ``ValueError`` when nshards
+    does not divide the cells."""
+    return bh_accumulators(pos, vel, mass, radius, shard=shard,
+                           nshards=nshards, **kw)
 
 
 # ---------------------------------------------------------------------------

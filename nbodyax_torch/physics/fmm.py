@@ -429,14 +429,17 @@ def _l2p(local, pos, ext, levels: int, dim: int, degree: int = 3):
     return (mono[:, :, None] * tab[_flatten_cells(cs, g)]).sum(1)
 
 
-def _l2p_slots(local, pslot, ext, levels: int, dim: int, degree: int = 3):
+def _l2p_slots(local, pslot, ext, levels: int, dim: int, degree: int = 3,
+               cell0: int = 0):
     """L2P at each cell's slot positions ``pslot`` [nc, ci, dim] (cell-
-    major, so no gather); returns [nc, ci, dim]. Pad slots give junk that
-    the unsort never reads."""
+    major, so no gather) with the expansions ``local`` [nc, n_loc] of the
+    cells cell0 .. cell0 + nc - 1; returns [nc, ci, dim]. Pad slots give
+    junk that the unsort never reads."""
     g = 1 << levels
     nc = pslot.shape[0]
     mins, csz = _cell_sizes(ext, g)
-    axes = _iota_axes(nc, g, dim, pslot.device)
+    axes = [a[cell0:cell0 + nc] for a in _iota_axes(cell0 + nc, g, dim,
+                                                    pslot.device)]
     y = torch.stack([pslot[..., d] - (mins[d] + (axes[d][:, None].to(
         torch.float32) + 0.5) * csz[d]) for d in range(dim)], -1)
     expos, tab = _l2p_table(local, dim, degree)
@@ -481,60 +484,70 @@ def _annulus_offsets(w_near: int, w_far: int, dim: int):
             if not all(abs(x) <= w_near for x in d)]
 
 
-def _slot_side(structure, ci: int, fslot=None):
-    """The i side of the per-cell passes: each cell's first ci sorted
-    bodies as [ncells, ci, L] rows (the shared slot grid when given, else a
-    gather), with their scatter ids (``n`` where the slot is empty)."""
+def _cell_slice(ncells: int, cell_range):
+    """(first cell, count) of a cell range, the whole grid for None."""
+    return (0, ncells) if cell_range is None else cell_range
+
+
+def _slot_side(structure, ci: int, fslot=None, cell_range=None):
+    """The i side of the per-cell passes: the first ci sorted bodies of
+    each cell of ``cell_range`` (every cell for None) as [cells, ci, L]
+    rows (the shared slot grid when given, else a gather), with their
+    scatter ids (``n`` where the slot is empty)."""
     _, _, starts, ends, sf = structure
     n = sf.shape[0] - 1
+    c0, nc = _cell_slice(starts.shape[0], cell_range)
+    starts, ends = starts[c0:c0 + nc], ends[c0:c0 + nc]
     isl = starts[:, None] + torch.arange(ci, device=sf.device)
     i_ok = isl < torch.minimum(ends, starts + ci)[:, None]
-    fi = fslot[:, :ci] if fslot is not None else sf[torch.where(i_ok, isl, n)]
+    fi = (fslot[c0:c0 + nc, :ci] if fslot is not None
+          else sf[torch.where(i_ok, isl, n)])
     ii = _unpack_id(fi[..., -2], fi[..., -1])
     return fi, torch.where(i_ok, ii, n).reshape(-1)
 
 
 def _annulus_force_cells(packed, ext, levels: int, w_near: int, w_far: int,
                          eps2, order: int, structure, ci_cap: int,
-                         fslot=None):
-    """Exact-target force from the finest-level annulus cells at every
-    cell's first ``ci_cap`` slots: (force [ncells * ci_cap, dim], scatter
-    ids). Sources are flat-shifted slices of the padded grid, one an
+                         fslot=None, cell_range=None):
+    """Exact-target force from the finest-level annulus cells at the
+    first ``ci_cap`` slots of every cell of ``cell_range`` (first cell,
+    count; every cell for None): (force [cells * ci_cap, dim], scatter
+    ids). Sources are flat-shifted slices of the padded whole grid, one an
     offset; out-of-grid wraps are masked from the cell coordinates. The
-    cells go through in chunks (a power of two, so it divides the grid)
-    whose [cells, slots, offsets] temporaries hold at most
-    ``_ANNULUS_ELEMS`` elements; a cell's result does not depend on the
-    chunking."""
+    cells go through in chunks whose [cells, slots, offsets] temporaries
+    hold at most ``_ANNULUS_ELEMS`` elements; a cell's result does not
+    depend on the chunking."""
     dim = len(ext[0])
     g = 1 << levels
     ncells = g ** dim
+    c_first, nc = _cell_slice(ncells, cell_range)
     maxk = sum(w_far * g ** d for d in range(dim))
     Gp = F.pad(packed, (0, 0, maxk, maxk))
-    fi, sidx = _slot_side(structure, ci_cap, fslot)
+    fi, sidx = _slot_side(structure, ci_cap, fslot, cell_range)
     offs = _const(("annulus", w_near, w_far, dim), packed.device,
                   lambda: torch.tensor(_annulus_offsets(w_near, w_far,
                                                         dim)))  # [K, dim]
     kk = sum(offs[:, d] * g ** d for d in range(dim))
     coords = _iota_axes(ncells, g, dim, packed.device)
-    cc = max(1, min(ncells, _ANNULUS_ELEMS // (ci_cap * offs.shape[0])))
+    cc = max(1, min(nc, _ANNULUS_ELEMS // (ci_cap * offs.shape[0])))
     cc = 1 << (cc.bit_length() - 1)
     out = []
-    for c0 in range(0, ncells, cc):
-        cells = torch.arange(c0, c0 + cc, device=packed.device)
+    for c0 in range(c_first, c_first + nc, cc):
+        c1 = min(c0 + cc, c_first + nc)
+        cells = torch.arange(c0, c1, device=packed.device)
         rows = Gp[maxk + cells[:, None] + kk[None, :]]        # [cc, K, ch]
-        ws = [coords[d][c0:c0 + cc, None] + offs[None, :, d]
-              for d in range(dim)]
+        ws = [coords[d][c0:c1, None] + offs[None, :, d] for d in range(dim)]
         okc = torch.ones_like(ws[0], dtype=torch.bool)
         for d in range(dim):
             okc = okc & (ws[d] >= 0) & (ws[d] < g)
         # targets [cc, ci, 1] against the K shell cells [cc, 1, K]
         fo = _far_window_force(
-            [fi[c0:c0 + cc, :, d:d + 1] for d in range(dim)],
+            [fi[c0 - c_first:c1 - c_first, :, d:d + 1] for d in range(dim)],
             [w[:, None, :] for w in ws], okc[:, None, :], rows[:, None],
             ext, g, eps2, order)
         out.append(torch.stack([f.sum(-1) for f in fo], -1))
     force = out[0] if len(out) == 1 else torch.cat(out)
-    return force.reshape(ncells * ci_cap, dim), sidx
+    return force.reshape(nc * ci_cap, dim), sidx
 
 
 def _annulus_force_bodies(i_pos, packed, ext, levels: int, w_near: int,
@@ -619,23 +632,26 @@ def _far_force(i_pos, pos, mass, ext, levels: int, ring: int, eps2, order=1,
 
 def _far_force_cells(pos, mass, ext, levels: int, ring: int, eps2,
                      order: int, structure, ci_cap: int, grids=None,
-                     fslot=None):
-    """Far field of every cell's first ``ci_cap`` sorted bodies by
-    per-CELL window gathers (all bodies of a finest cell share every
-    level's window). Returns (force [ncells * ci_cap, dim], scatter ids)."""
+                     fslot=None, cell_range=None):
+    """Far field of the first ``ci_cap`` sorted bodies of every cell of
+    ``cell_range`` (first cell, count; every cell for None) by per-CELL
+    window gathers (all bodies of a finest cell share every level's
+    window). Returns (force [cells * ci_cap, dim], scatter ids)."""
     dim = pos.shape[-1]
     g_f = 1 << levels
     ncells = g_f ** dim
+    c_first, nc = _cell_slice(ncells, cell_range)
     if grids is None:
         grids = _level_grids(pos, mass, ext, levels, order)
-    fi, sidx = _slot_side(structure, ci_cap, fslot)
-    fcoords = _iota_axes(ncells, g_f, dim, pos.device)
+    fi, sidx = _slot_side(structure, ci_cap, fslot, cell_range)
+    fcoords = [a[c_first:c_first + nc]
+               for a in _iota_axes(ncells, g_f, dim, pos.device)]
     packed = {lv: torch.stack(grids[lv], 1) for lv in range(2, levels + 1)}
     # cell chunks bound the [cells, ci, window] temporaries near 2^22
     win = max(_DENSE_FAR_CELLS[dim], (4 * ring + 2) ** dim)
     cc = max(1, (1 << 22) // (ci_cap * win))
     out = []
-    for c0 in range(0, ncells, cc):
+    for c0 in range(0, nc, cc):
         pxs = [fi[c0:c0 + cc, :, d:d + 1] for d in range(dim)]
         force = torch.zeros((pxs[0].shape[0], ci_cap, dim),
                             dtype=torch.float32, device=pos.device)
@@ -648,4 +664,4 @@ def _far_force_cells(pos, mass, ext, levels: int, ring: int, eps2,
                                   1 << lv, eps2, order)
             force = force + torch.stack([fa.sum(-1) for fa in f], -1)
         out.append(force)
-    return torch.cat(out).reshape(ncells * ci_cap, dim), sidx
+    return torch.cat(out).reshape(nc * ci_cap, dim), sidx

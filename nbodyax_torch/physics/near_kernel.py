@@ -18,6 +18,12 @@ the packed-lane order of the slot unsort in
 ``barneshut._near_field_cells``. The rows do not encode the dimension, so
 every entry point takes ``dim`` (default 2).
 
+The cell slice (nbodyax's ``cell_base`` / ``ncells_eval``, the sharded bh
+step's form): with ``cell_base`` and ``ncells_eval`` both engines evaluate
+only the cells [cell_base, cell_base + ncells_eval) and return
+f32[ncells_eval, ci, 8]; the slot grid stays the whole grid, so windows
+read cells past the slice's edges. ``ncells_eval=0`` means every cell.
+
 - ``slots_near`` launches the kernel on a CUDA tensor and runs
   ``slots_near_reference`` on a CPU tensor; ``slots_near.launches`` counts
   kernel launches. ``near_plan`` is its one host-side choice: the staging
@@ -70,7 +76,8 @@ def near_plan(S: int, ring: int, L: int, dim: int = 2):
     return cap, NEAR_WARPS * (cap * per + 32) * 4
 
 
-def _check(fslot, mode, ci, g, dim):
+def _check(fslot, mode, ci, g, dim, cell_base=0, ncells_eval=0):
+    """Refuse what the kernel does not take; returns the slice length."""
     if mode not in MODES:
         raise ValueError(f"unknown collision mode {mode!r}")
     if dim not in (2, 3):
@@ -87,18 +94,26 @@ def _check(fslot, mode, ci, g, dim):
     if L != want_l or not 0 < ci <= S:
         raise ValueError(f"fslot rows must be {want_l} wide and ci in "
                          f"[1, S={S}], got L={L}, ci={ci}")
+    ne = ncells_eval or ncells
+    if cell_base < 0 or ne < 0 or cell_base + ne > ncells:
+        raise ValueError(f"the cell slice [{cell_base}, {cell_base + ne}) "
+                         f"leaves the grid of {ncells} cells")
+    return ne
 
 
 def slots_near(fslot, *, mode: str, eps2: float, growth: float, g: int,
-               ring: int, ci: int, dim: int = 2):
-    """Near-field channels f32[ncells, ci, 8] of the slot grid ``fslot``
-    of a ``dim``-dimensional grid: the CUDA kernel on a CUDA tensor, the
-    plain version on a CPU tensor."""
-    _check(fslot, mode, ci, g, dim)
+               ring: int, ci: int, dim: int = 2, cell_base: int = 0,
+               ncells_eval: int = 0):
+    """Near-field channels f32[ncells_eval or ncells, ci, 8] of the slot
+    grid ``fslot`` of a ``dim``-dimensional grid, for the cells from
+    ``cell_base`` on: the CUDA kernel on a CUDA tensor, the plain version
+    on a CPU tensor."""
+    ne = _check(fslot, mode, ci, g, dim, cell_base, ncells_eval)
     if fslot.device.type == "cpu":
         return slots_near_reference(fslot, mode=mode, eps2=eps2,
                                     growth=growth, g=g, ring=ring, ci=ci,
-                                    dim=dim)
+                                    dim=dim, cell_base=cell_base,
+                                    ncells_eval=ncells_eval)
     if fslot.device.type != "cuda":
         raise ValueError(f"no near kernel for device {fslot.device}")
     from nbodyax_torch.physics._build import load_library
@@ -109,7 +124,7 @@ def slots_near(fslot, *, mode: str, eps2: float, growth: float, g: int,
     if fslot.data_ptr() % (16 if L == 8 else 8 if L % 2 == 0 else 4):
         fslot = fslot.clone()
     cap, _ = near_plan(S, ring, L, dim)
-    out = torch.empty((ncells, ci, NUM_CH), dtype=torch.float32,
+    out = torch.empty((ne, ci, NUM_CH), dtype=torch.float32,
                       device=fslot.device)
     with torch.cuda.device(fslot.device):
         stream = torch.cuda.current_stream(fslot.device).cuda_stream
@@ -117,7 +132,8 @@ def slots_near(fslot, *, mode: str, eps2: float, growth: float, g: int,
                                      cap, MODES.index(mode), dim,
                                      float(np.float32(eps2)),
                                      float(np.float32(growth)),
-                                     out.data_ptr(), stream)
+                                     int(cell_base), ne, out.data_ptr(),
+                                     stream)
     if err != 0:
         raise RuntimeError(f"near kernel launch failed: CUDA error {err}")
     slots_near.launches += 1
@@ -142,15 +158,18 @@ def _lanes(acc, mode: str, dim: int):
 
 
 def slots_near_reference(fslot, *, mode: str, eps2: float, growth: float,
-                         g: int, ring: int, ci: int, dim: int = 2):
+                         g: int, ring: int, ci: int, dim: int = 2,
+                         cell_base: int = 0, ncells_eval: int = 0):
     """Plain PyTorch version of the near kernel, dimension-generic.
 
     Window rows are contiguous slices of the flat slot grid padded by the
     window's reach in zero cells; out-of-grid window cells (the flat
     layout's x-wrap and rows past the edge) are masked by zeroing the
     partner mass. Chunked over cells so a chunk holds about
-    ``_PAIRS_PER_CHUNK`` pairs."""
-    _check(fslot, mode, ci, g, dim)
+    ``_PAIRS_PER_CHUNK`` pairs; a cell's result does not depend on the
+    chunk it falls in, so a slice gives each of its cells what the whole
+    grid gives it."""
+    ne = _check(fslot, mode, ci, g, dim, cell_base, ncells_eval)
     ncells, S, L = fslot.shape
     dev = fslot.device
     need_vel = mode == "elastic"
@@ -159,12 +178,13 @@ def slots_near_reference(fslot, *, mode: str, eps2: float, growth: float,
     padc = ring * sum(g ** d for d in range(dim))
     flat = F.pad(fslot.reshape(ncells * S, L), (0, 0, padc * S, padc * S))
     cc = max(1, min(ncells, _PAIRS_PER_CHUNK // (ci * win * S)))
-    cc = 1 << (cc.bit_length() - 1)          # a power of two divides ncells
-    B = cc * ci
+    cc = 1 << (cc.bit_length() - 1)
     eps2 = float(np.float32(eps2))
     growth = float(np.float32(growth))
     out = []
-    for base in range(0, ncells, cc):
+    for base in range(cell_base, cell_base + ne, cc):
+        cc = min(cc, cell_base + ne - base)
+        B = cc * ci
         cid = base + torch.arange(cc, device=dev)
         coords, rem = [], cid
         for _ in range(dim):                  # x fastest
@@ -204,4 +224,4 @@ def slots_near_reference(fslot, *, mode: str, eps2: float, growth: float,
                 pi, vi, mi, ri, ii, pj, vj, mj, rj, jj, eps2=eps2,
                 growth_rate=growth, mode=mode))
         out.append(_lanes(acc, mode, dim).reshape(cc, ci, NUM_CH))
-    return torch.cat(out)
+    return torch.cat(out) if out else fslot.new_zeros((0, ci, NUM_CH))

@@ -107,12 +107,15 @@ def _norm(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(s)
 
 
-def step_dt(vel, mass, radius, force, p: PhysicsParams):
+def step_dt(vel, mass, radius, force, p: PhysicsParams, group=None):
     """The dt a step integrates with: the configured dt (a Python float),
     or under ``adaptive_dt`` one global value from the post-collision
     arrays and the step-start force, a 0-d f32 tensor on their device:
     clip(min over alive bodies of min(eta*sqrt(r/|a|), eta*r/|v|), dt_min,
-    dt_max). An all-dead state clips to dt_max. No host read."""
+    dt_max). An all-dead state clips to dt_max. No host read. ``group``
+    (a ``sharding.ShardGroup``): the arrays are this rank's rows, and the
+    minimum is taken over every rank (nbodyax's ``pmin``), so all ranks
+    step with the same dt."""
     if not p.adaptive_dt:
         return p.dt
     amag = _norm(force * GRAV_CONSTANT)
@@ -122,8 +125,11 @@ def step_dt(vel, mass, radius, force, p: PhysicsParams):
     dt_v = p.dt_eta * radius / torch.clamp(vmag, min=tiny)
     dt_i = torch.where(mass > 0, torch.minimum(dt_a, dt_v),
                        torch.full_like(dt_a, float("inf")))
+    dt = dt_i.min()
+    if group is not None:
+        dt = group.all_min(dt)
     lo, hi = p.dt_bounds
-    return torch.clamp(dt_i.min(), lo, hi)
+    return torch.clamp(dt, lo, hi)
 
 
 def _limit(radius, p: PhysicsParams, dim: int) -> torch.Tensor:

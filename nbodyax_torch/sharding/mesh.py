@@ -1,0 +1,176 @@
+"""Process groups and state placement for ``shards > 1``.
+
+Counterpart of ``nbodyax/sharding/mesh.py``. Where nbodyax runs one
+process over a mesh of P devices, the port runs one process a shard on
+``torch.distributed``, launched with ``torch.distributed.run`` (torchrun):
+
+    python -m torch.distributed.run --nproc-per-node P \\
+        -m nbodyax_torch.cli --set shards=P [--device cpu]
+
+``maybe_init_distributed`` reads torchrun's environment (``RANK``,
+``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``/``MASTER_PORT``) and joins
+the group: NCCL with rank r on ``cuda:LOCAL_RANK``, gloo on the CPU. The
+group has a timeout (``GROUP_TIMEOUT``), so a rank that fails ends the run
+rather than leaving its peers waiting. ``make_group`` is ``make_mesh``'s
+rule: the shard count must equal the world size, and on cards there must
+be a card for every rank on the host (NCCL refuses two ranks on one card).
+
+Shard r owns the rows [r n / P, (r + 1) n / P) of a capacity ``n`` that
+``pad_to_shards`` made a multiple of P with dead slots (mass 0).
+``ShardGroup`` holds the rank, the size, the device and the process group,
+and the four collectives the steps use. A CUDA tensor goes through NCCL
+only: gloo, which runs the CPU groups, never sees one, and no collective
+copies a card's tensor to the host.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import os
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+from nbodyax_torch.state import SimState
+
+__all__ = ["ShardGroup", "maybe_init_distributed", "make_group",
+           "pad_to_shards", "shard_state", "GROUP_TIMEOUT"]
+
+# how long a collective waits for a peer before the run fails
+GROUP_TIMEOUT = datetime.timedelta(seconds=600)
+
+# the tensor forms of all_gather and reduce_scatter (renamed in newer torch)
+_all_gather = getattr(dist, "all_gather_single", None) or \
+    dist.all_gather_into_tensor
+_reduce_scatter = getattr(dist, "reduce_scatter_single", None) or \
+    dist.reduce_scatter_tensor
+
+
+class _Shift:
+    """A ring shift in flight: ``wait`` returns the received tensors."""
+
+    def __init__(self, works, bufs):
+        self.works, self.bufs = works, bufs
+
+    def wait(self) -> list:
+        for w in self.works:
+            w.wait()
+        return self.bufs
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardGroup:
+    """One rank's view of the shard group. ``group`` None is the default
+    process group. The collectives take and return tensors on ``device``
+    and are called by every rank in the same order."""
+
+    rank: int
+    size: int
+    device: torch.device
+    group: Optional[object] = None
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The ranks' ``x`` (equal shapes) stacked along dim 0 in rank
+        order."""
+        x = x.contiguous()
+        out = x.new_empty((self.size * x.shape[0],) + tuple(x.shape[1:]))
+        _all_gather(out, x, group=self.group)
+        return out
+
+    def reduce_scatter_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum of the ranks' ``x`` over rank, this rank's 1/size of dim 0."""
+        x = x.contiguous()
+        out = x.new_empty((x.shape[0] // self.size,) + tuple(x.shape[1:]))
+        _reduce_scatter(out, x, group=self.group)
+        return out
+
+    def shift(self, tensors) -> _Shift:
+        """Start the ring shift: send ``tensors`` to rank r - 1 and receive
+        rank r + 1's into new buffers of the same shapes."""
+        prev = (self.rank - 1) % self.size
+        nxt = (self.rank + 1) % self.size
+        bufs = [torch.empty_like(t) for t in tensors]
+        ops = [dist.P2POp(dist.isend, t.contiguous(), prev, self.group)
+               for t in tensors]
+        ops += [dist.P2POp(dist.irecv, b, nxt, self.group) for b in bufs]
+        return _Shift(dist.batch_isend_irecv(ops), bufs)
+
+    def all_min(self, x: torch.Tensor) -> torch.Tensor:
+        """The elementwise minimum of the ranks' ``x``."""
+        y = x.clone()
+        dist.all_reduce(y, op=dist.ReduceOp.MIN, group=self.group)
+        return y
+
+
+def maybe_init_distributed(device) -> Optional[ShardGroup]:
+    """Join the process group that torchrun's environment describes, or
+    the one the caller already initialised; None for a single process
+    (no ``WORLD_SIZE`` in the environment and no group). On a card each
+    rank takes ``cuda:LOCAL_RANK`` under NCCL; on the CPU the group is
+    gloo."""
+    dev = torch.device(device)
+    if not dist.is_initialized():
+        if "WORLD_SIZE" not in os.environ:
+            return None
+        if dev.type == "cuda":
+            # every rank of the host checks before any joins the group
+            ranks = int(os.environ.get("LOCAL_WORLD_SIZE",
+                                       os.environ["WORLD_SIZE"]))
+            cards = torch.cuda.device_count()
+            if ranks > cards:
+                raise ValueError(
+                    f"{ranks} ranks on a host with {cards} card(s): NCCL "
+                    "takes one rank a card")
+            dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+            torch.cuda.set_device(dev)
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                                timeout=GROUP_TIMEOUT)
+    elif dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return ShardGroup(dist.get_rank(), dist.get_world_size(), dev)
+
+
+def make_group(n_shards: int, device) -> ShardGroup:
+    """The group of ``n_shards`` ranks this process belongs to (nbodyax's
+    ``make_mesh``): ``ValueError`` when the shard count is not the world
+    size, or (``maybe_init_distributed``) when there are more ranks on
+    this host than cards."""
+    group = maybe_init_distributed(device)
+    size = 1 if group is None else group.size
+    if group is None or n_shards != size:
+        raise ValueError(
+            f"shards={n_shards} needs {n_shards} processes, one a shard "
+            f"(python -m torch.distributed.run --nproc-per-node "
+            f"{n_shards} ...); this run has {size}")
+    return group
+
+
+def pad_to_shards(state: SimState, n_shards: int) -> SimState:
+    """Pad the capacity to a multiple of ``n_shards`` with dead slots
+    (mass 0)."""
+    n = state.capacity
+    pad = -(-n // n_shards) * n_shards - n
+    if pad == 0:
+        return state
+
+    def pad1(x):
+        return torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+
+    return SimState(pad1(state.pos), pad1(state.vel), pad1(state.mass),
+                    pad1(state.radius), state.step, state.sim_time)
+
+
+def shard_state(state: SimState, group: ShardGroup) -> SimState:
+    """This rank's rows of a global state whose capacity the group size
+    divides, on the group's device (step and sim_time replicated)."""
+    n = state.capacity
+    if n % group.size:
+        raise ValueError(f"capacity {n} is not a multiple of the "
+                         f"{group.size} shards (pad_to_shards first)")
+    m = n // group.size
+    rows = slice(group.rank * m, (group.rank + 1) * m)
+    return SimState(*(t[rows].to(group.device).contiguous()
+                      for t in state[:4]),
+                    state.step, state.sim_time.to(group.device))

@@ -650,8 +650,9 @@ def test_cli_runs_3d(tmp_path, capsys):
 def test_bh_in_3d_raises_and_names_its_item():
     """3-D bh runs on a single device (tests/test_torch_bh_3d.py and
     test_torch_bh_3d_slice.py hold it to nbodyax): a direct 3-D call gives
-    3-D accumulators, and the driver runs it. What is left, sharded 3-D bh,
-    raises and names ROADMAP item A11."""
+    3-D accumulators, and the driver runs it. What is left of sharded 3-D
+    bh, autoResume's in-process retry under shards, raises and names
+    ROADMAP item A11."""
     from nbodyax_torch.physics.barneshut import bh_accumulators
     arrays = tensors(random_state_3d(256, seed=8))
     acc = bh_accumulators(*arrays, eps=10.0, mode="reference", levels=3,
@@ -661,6 +662,6 @@ def test_bh_in_3d_raises_and_names_its_item():
                     force_model="bh", save_images=False)
     assert run_simulation(cfg, device="cpu",
                           quiet=True).state.pos.shape == (64, 3)
-    cfg.shards = 2
+    cfg.shards, cfg.auto_resume = 2, True
     with pytest.raises(NotImplementedError, match="A11"):
         run_simulation(cfg, device="cpu", quiet=True)

@@ -42,7 +42,8 @@ KEYS = {
     4: {"config", "n", *RATES},
     5: {"config", "n", "workload", "force_model", "steps_per_sec",
         "equivalent_exact_pairs_per_sec", "exact_steps_per_sec",
-        "exact_pairs_per_sec", "finite", "ring_dryrun"},
+        "exact_pairs_per_sec", "finite", "ring_dryrun_8dev_ok",
+        "ring_dryrun_wall_s"},
     6: {"config", "n", "steps_per_sec", "equivalent_exact_pairs_per_sec",
         "force_model", "finite"},
 }
@@ -114,7 +115,7 @@ def test_suite_config_keys(config, one_thread):
     if "finite" in line:
         assert line["finite"] is True
     if config == 5:
-        assert line["ring_dryrun"] == "not ported (ROADMAP A11)"
+        assert line["ring_dryrun_8dev_ok"] is True
         assert "v5e" not in line["workload"]
     assert "target_1e11" not in line
 

@@ -12,7 +12,8 @@ CPU.
 - a 10-step 3-D bh CLI run (N = 512) whose merges (alive mask exact) equal
   nbodyax's driver started from the same state; the port's 3-D uniform
   scene is its own draw, so nbodyax takes it over through ``make_state``;
-- what still raises: ``shards > 1`` (ROADMAP A11) with 3-D bh.
+- what still raises: autoResume under ``shards > 1`` (ROADMAP A11) with
+  3-D bh.
 
 nbodyax runs with ``bhPallas=off``: its own tests hold its Pallas kernels
 to that engine. Its results are computed once per module.
@@ -243,9 +244,11 @@ def test_resolve_bh_config_3d_matches_nbodyax():
 
 
 def test_sharded_3d_bh_raises_and_names_its_item():
-    """The cell-slice shard hooks of the 3-D near kernel and of the bh
-    structure are ROADMAP item A11: ``shards > 1`` raises and says so."""
+    """Sharded 3-D bh runs (tests/test_torch_sharding_bh.py); its
+    autoResume retry is what is left of ROADMAP item A11, and it raises
+    and says so."""
     cfg = SimConfig(particle_count=64, total_iterations=1, dimensions=3,
-                    force_model="bh", shards=2, save_images=False)
+                    force_model="bh", shards=2, save_images=False,
+                    auto_resume=True)
     with pytest.raises(NotImplementedError, match="A11"):
         run_simulation(cfg, device="cpu", quiet=True)

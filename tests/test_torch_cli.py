@@ -4,7 +4,8 @@ The port's CLI (``--device cpu``) writes the same frames, byte for byte,
 as ``nbodyax.cli`` on the same config, runs leapfrog and yoshida4 to
 nbodyax's final state, and logs ``adaptiveDt``'s ``dt_mean`` and
 ``energyEvery``'s energies as nbodyax does; the port imports no JAX; and
-the config values it does not run yet (sharding) are refused.
+the config values it does not run yet (autoResume under shards) are
+refused.
 """
 
 import json
@@ -163,8 +164,9 @@ def test_missing_config_errors(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("override,item", [
-    (dict(force_model="bh", dimensions=3, shards=2), "A11"),
-    (dict(shards=2), "A11"),
+    (dict(force_model="bh", dimensions=3, shards=2, auto_resume=True),
+     "A11"),
+    (dict(shards=2, auto_resume=True), "A11"),
 ])
 def test_unported_config_values_raise(override, item, tmp_path):
     cfg = SimConfig(particle_count=8, total_iterations=1, save_images=False,

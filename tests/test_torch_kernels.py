@@ -634,6 +634,54 @@ def test_near_kernel_matches_plain_version(cuda, mode, eps, ring):
                 < NEAR_GATE, c
 
 
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("dim,levels,S,ci", [(2, 4, 48, 40), (3, 3, 48, 40)])
+@pytest.mark.parametrize("ring", [1, 2])
+def test_near_kernel_slices_tile_the_full_launch(cuda, mode, dim, levels, S,
+                                                 ci, ring):
+    """B3's cell-slice form (the sharded bh step's): four slices of the
+    cells are each within B3's gates of their plain version (flags and
+    ids exact) and together the full launch bit for bit; a slice past the
+    grid is refused; each slice counts as a launch."""
+    from nbodyax_torch.physics.near_kernel import (slots_near,
+                                                   slots_near_reference)
+    from nbodyax_torch.physics.slotpack_kernel import pack_slots
+    _, _, st = bh_grid_inputs(8192, 3, cuda, levels, mode == "elastic",
+                              dim=dim)
+    fslot = pack_slots(st[4], st[2], st[3], S)
+    g = 1 << levels
+    ne = g ** dim // 4
+    kw = dict(mode=mode, eps2=100.0, growth=0.1, g=g, ring=ring, ci=ci,
+              dim=dim)
+    full = slots_near(fslot, **kw)
+    before = slots_near.launches
+    parts = []
+    rest = 2 * dim if mode == "elastic" else dim
+    exact = {"reference": [dim + 2], "momentum": [dim + 1, dim + 2]}.get(
+        mode, [])
+    for r in range(4):
+        sl = dict(cell_base=r * ne, ncells_eval=ne)
+        k = slots_near(fslot, **kw, **sl)
+        parts.append(k)
+        p = slots_near_reference(fslot, **kw, **sl)
+        live = fslot[r * ne:(r + 1) * ne, :ci, rest] > 0
+        k, p = k[live], p[live]
+        fin = torch.isfinite(p)
+        assert torch.equal(fin, torch.isfinite(k))
+        k, p = torch.where(fin, k, 0.0), torch.where(fin, p, 0.0)
+        scale = p.abs().amax(0).clamp(min=1e-30)
+        for c in range(8):
+            if c in exact:
+                assert torch.equal(k[:, c], p[:, c]), (r, c)
+            else:
+                assert float((k[:, c] - p[:, c]).abs().max() / scale[c]) \
+                    < NEAR_GATE, (r, c)
+    assert slots_near.launches == before + 4
+    assert torch.equal(torch.cat(parts), full)
+    with pytest.raises(ValueError, match="leaves the grid"):
+        slots_near(fslot, cell_base=3 * ne + 1, ncells_eval=ne, **kw)
+
+
 def test_near_kernel_deterministic_and_counted(cuda):
     from nbodyax_torch.physics.near_kernel import slots_near
     from nbodyax_torch.physics.slotpack_kernel import pack_slots
