@@ -225,8 +225,35 @@ Phases, each of which exits non-zero on failure:
     steps, bitwise at every 10th; exact for 200 steps, merges equal at
     every 20th and positions at tests/test_ring.py's gates at step 20 (the
     ring's sums round differently, and close encounters amplify that);
-    on one card the line ``sharded_multicard: not run (1 card)``. Each of
-    phases 28-39 prints its seconds.
+    on one card the line ``sharded_multicard: not run (1 card)``. Then
+    the gradient through the sharded ring: ``make_loss`` over
+    ``make_sharded_step`` under a one-rank NCCL group (torchrun) on the
+    default scene at phase 10's settings (4 euler steps, 2 leapfrog
+    steps) in reference, momentum and elastic mode with remat, d/d(pos,
+    vel, mass) against the single-device kernel path and the
+    single-device oracle at 1e-5 of the largest |grad|; momentum mode's
+    mass gradient, which float32 rounding swamps in every engine, in
+    float64 through the oracle's ring against the single-device oracle
+    in float64 (see ``sharded_gradients``); bitwise or not, and the
+    gradient's host time sharded and single-device; with two cards or
+    more the same over min(4, cards) ranks. B2's launches on that run are
+    the ``pair_bwd_kernel_ring`` row's: on one card a one-rank group's,
+    every tile the whole array at offsets 0 and 0; with more cards the
+    multi-rank run's, hops on other ranks' rows among them. Beside the
+    NCCL child, autoResume
+    under shards: two gloo ranks on the CPU under torchrun
+    ``--max-restarts 1``, rank 1 failing at step 20 on the first attempt,
+    bitwise equal to the straight run at step 40;
+40. B2 around the ring in this process: the default scene at P = 8 in
+    momentum mode with 64 overlapping pairs placed across tiles (winners
+    in other ranks' tiles), and suite config 3's N = 131,072 at P = 8 in
+    reference mode: every (rank, hop) against ``raw_backward_reference``
+    at 3e-6 (the largest error over the largest value, and each channel
+    over its own largest), the i sides summed per rank and the j sides
+    summed onto their owners against one single-device B2 over all N;
+    B2's device time on a 16,384 x 16,384 ring tile and rank 0's summed
+    backward.
+    Each of phases 28-40 prints its seconds.
 
 The line before the last is a JSON object describing each kernel (the
 wrapper call's CUDA-event time ``ms``, the kernel's own device time by
@@ -3342,26 +3369,40 @@ def phase_collectives_on_cuda():
     one card: bh for 50 steps, bitwise at every 10th; exact for 200 steps,
     merges equal at every 20th and positions at tests/test_ring.py's
     trajectory gates at step 20. On one card it says that it did not
-    run."""
+    run. Then the gradient through the ring (``sharded_gradients``) on
+    one rank and, with two cards or more, on min(4, cards); beside the
+    NCCL child, autoResume under shards on two gloo ranks. Returns the
+    gradient run whose B2 launches the kernels line counts: the
+    multi-rank one where there is one."""
     env = dict(os.environ, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
                LOCAL_WORLD_SIZE="1", MASTER_ADDR="localhost",
                MASTER_PORT=str(free_port()))
     t0 = time.perf_counter()
-    r = subprocess.run([sys.executable, "-c", PHASE39_CHILD, HERE], env=env,
-                       capture_output=True, text=True, timeout=600)
-    check(r.returncode == 0, f"one-rank NCCL child failed:\n"
-                             f"{r.stdout[-2000:]}{r.stderr[-3000:]}")
-    res = json.loads(r.stdout.strip().splitlines()[-1])
-    print(f"one-rank NCCL group ({time.perf_counter() - t0:.1f} s in its "
-          f"process): {json.dumps(res)}")
-    check(res.pop("backend") == "nccl" and all(res.values()),
-          f"the sharded steps on a one-rank NCCL group differ from the "
-          f"single-device steps: {res}")
+    resume = start_auto_resume()     # on the CPU, beside the NCCL child
+    try:
+        r = subprocess.run([sys.executable, "-c", PHASE39_CHILD, HERE],
+                           env=env, capture_output=True, text=True,
+                           timeout=600)
+        check(r.returncode == 0, f"one-rank NCCL child failed:\n"
+                                 f"{r.stdout[-2000:]}{r.stderr[-3000:]}")
+        res = json.loads(r.stdout.strip().splitlines()[-1])
+        print(f"one-rank NCCL group ({time.perf_counter() - t0:.1f} s in "
+              f"its process): {json.dumps(res)}")
+        check(res.pop("backend") == "nccl" and all(res.values()),
+              f"the sharded steps on a one-rank NCCL group differ from the "
+              f"single-device steps: {res}")
+        check_auto_resume(resume)
+    finally:
+        for _, proc in resume.values():
+            if proc.poll() is None:
+                finish(proc, 0)
+    grads = sharded_gradients(1, "cuda")
     cards = torch.cuda.device_count()
     if cards < 2:
         print("sharded_multicard: not run (1 card)")
-        return
+        return grads
     ranks = min(4, cards)
+    grads = sharded_gradients(ranks, "cuda")
     work = tempfile.mkdtemp(prefix="multicard_")
 
     def run(tag, launch, sets, steps, every):
@@ -3412,6 +3453,422 @@ def phase_collectives_on_cuda():
             check(all(r[2] for r in rows) and rows[0][4],
                   "the multi-card exact run's merges or its first 20 steps "
                   "left the single-card run")
+    return grads
+
+
+PHASE39_GRAD_CHILD = r"""
+import dataclasses, json, os, sys, time
+import torch
+sys.path.insert(0, sys.argv[1])
+from nbodyax_torch.autodiff import make_loss
+from nbodyax_torch.backends import build_accum_fn
+from nbodyax_torch.config import SimConfig
+from nbodyax_torch.physics import _build
+from nbodyax_torch.physics.kernels import tile_accumulators_raw
+from nbodyax_torch.physics import kernels_bwd
+from nbodyax_torch.physics.kernels_bwd import raw_backward
+from nbodyax_torch.physics.step import PhysicsParams, make_step
+from nbodyax_torch.scenes import init_scene
+from nbodyax_torch.sharding import (make_group, make_sharded_step,
+                                    pad_to_shards, shard_state)
+world = int(os.environ["WORLD_SIZE"])
+group = make_group(world, sys.argv[2])
+dev = group.device
+if dev.type == "cuda":
+    _build.load_library()
+
+
+def sync():
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def grads(step, state, n, steps):
+    # d/d(pos, vel, mass) of this rank's share of phase 10's terminal loss
+    # (the alive bodies' squared distance to the origin, over the capacity)
+    leaves = [t.detach().clone().requires_grad_(True) for t in state[:3]]
+
+    def share(s):
+        w = (s.mass > 0).to(torch.float32)
+        return (w * (s.pos * s.pos).sum(-1)).sum() / n
+    loss = make_loss(step, steps, share)(state._replace(
+        pos=leaves[0], vel=leaves[1], mass=leaves[2]))
+    return torch.autograd.grad(loss, leaves)
+
+
+def timed(fn):
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def errs(got, want):
+    return [float((a.double() - b.double()).abs().max() / b.abs().max())
+            for a, b in zip(got, want)]
+
+
+def hop_counted(fi, fj, i_offset, j_offset, *args, **kw):
+    # B2's launches on tiles of another rank's rows (hop > 0); the wrapper
+    # counts on its module's name, so that name is its own during the call
+    kernels_bwd.raw_backward = raw_backward
+    try:
+        before = raw_backward.launches
+        out = raw_backward(fi, fj, i_offset, j_offset, *args, **kw)
+        if int(i_offset) != int(j_offset):
+            launches["b2_ring_hops"] += raw_backward.launches - before
+    finally:
+        kernels_bwd.raw_backward = hop_counted
+    return out
+
+
+def double(state):
+    return state._replace(**{k: getattr(state, k).double() for k in
+                             ("pos", "vel", "mass", "radius", "sim_time")})
+
+
+rows, launches = [], {"b1": 0, "b2": 0, "b2_ring_hops": 0}
+for integ, steps in (("euler", 4), ("leapfrog", 2)):
+    for mode in ("reference", "momentum", "elastic"):
+        cfg = SimConfig(collision_mode=mode, softening=100.0,
+                        integrator=integ, save_images=False, shards=world,
+                        particle_count=int(sys.argv[3]))
+        p = PhysicsParams.from_config(cfg)
+        state = init_scene(cfg, device=dev)
+        n = state.capacity
+        local = shard_state(pad_to_shards(state, world), group)
+        sharded = make_sharded_step(cfg, p, group)
+        tile_accumulators_raw.launches = raw_backward.launches = 0
+        kernels_bwd.raw_backward = hop_counted
+        gs, _ = timed(lambda: grads(sharded, local, n, steps))
+        kernels_bwd.raw_backward = raw_backward
+        launches["b1"] += tile_accumulators_raw.launches
+        launches["b2"] += raw_backward.launches
+        gs, ms = timed(lambda: grads(sharded, local, n, steps))
+        gs = [group.all_gather(g)[:n] for g in gs]
+        g64 = None
+        if mode == "momentum":
+            # float64 through the torch oracle's ring: the mass gradient's
+            # float32 rounding cannot hide a wrong ring there
+            local64 = shard_state(pad_to_shards(double(state), world), group)
+            g64 = grads(make_sharded_step(dataclasses.replace(
+                cfg, backend="jnp"), p, group), local64, n, steps)
+            g64 = [group.all_gather(g)[:n] for g in g64]
+        if group.rank:
+            continue
+        single = make_step(p, accum_fn=build_accum_fn("auto", p, dev))
+        gl, _ = timed(lambda: grads(single, state, n, steps))
+        gl, ms1 = timed(lambda: grads(single, state, n, steps))
+        oracle = make_step(p, accum_fn=build_accum_fn("jnp", p, dev))
+        go = grads(oracle, state, n, steps)
+        row = dict(integrator=integ, steps=steps, mode=mode,
+                   err=errs(gs, gl), err_oracle=errs(gs, go),
+                   engines=errs(go, gl),
+                   nonzero=all(float(b.abs().max()) > 0 for b in gl),
+                   finite=all(bool(torch.isfinite(a).all()) for a in gs),
+                   bitwise=all(torch.equal(a, b) for a, b in zip(gs, gl)),
+                   sharded_ms=ms, single_ms=ms1)
+        if g64 is not None:
+            w64 = grads(oracle, double(state), n, steps)
+            i = int((gl[2] - go[2]).abs().argmax())
+            row.update(
+                err64=errs(g64, w64),
+                # each float32 mass gradient against the float64 one
+                mass_vs_f64={k: errs(g[2:], w64[2:])[0] for k, g in
+                             (("sharded", gs), ("kernel", gl),
+                              ("oracle", go))},
+                worst=dict(index=i, mass=float(state.mass[i]),
+                           kernel=float(gl[2][i]), oracle=float(go[2][i]),
+                           sharded=float(gs[2][i]), f64=float(w64[2][i]),
+                           largest_f64=float(w64[2].abs().max())))
+        rows.append(row)
+if group.rank == 0:
+    print(json.dumps({"backend": torch.distributed.get_backend(),
+                      "ranks": world, "launches": launches, "rows": rows}))
+torch.distributed.destroy_process_group()
+"""
+
+RESUME_CHILD = r"""
+import os, sys
+sys.path.insert(0, sys.argv[1])
+from nbodyax_torch import cli, driver
+if (os.environ["TORCHELASTIC_RESTART_COUNT"] == "0"
+        and os.environ["RANK"] == "1" and "--fault" in sys.argv):
+    advance = driver._ShardedWindows.advance
+
+    def failing(self, k, frames):
+        if self.state.step >= 20:
+            raise RuntimeError("injected fault at step %d" % self.state.step)
+        return advance(self, k, frames)
+
+    driver._ShardedWindows.advance = failing
+sys.exit(cli.main([a for a in sys.argv[2:] if a != "--fault"]))
+"""
+
+
+def torchrun(nproc, args, restarts=None) -> subprocess.Popen:
+    """Start ``python -m torch.distributed.run --standalone`` of ``args``
+    over ``nproc`` ranks, from this checkout (``finish`` reads it)."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(nproc)]
+    if restarts is not None:
+        cmd += ["--max-restarts", str(restarts)]
+    return subprocess.Popen(cmd + args, cwd=HERE, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def finish(proc, timeout):
+    """(exit code, stdout, stderr) of a started launch; past ``timeout``
+    it is ended (torchrun ends its ranks on SIGTERM)."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.terminate()
+        try:
+            out, err = proc.communicate(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+    return proc.returncode, out, err
+
+
+def sharded_gradients(ranks, device, n=16384):
+    """PHASE39_GRAD_CHILD over ``ranks`` ranks on ``device`` for the
+    default scene cut to ``n`` bodies: its JSON line, gated. Every
+    gradient is finite and nonzero, and within GRAD_GATE of the largest
+    |grad| of both single-device engines (the kernel path and the torch
+    oracle), but one: momentum mode's with respect to mass. On this scene
+    (masses 1e4 to 1e17) the centre of mass ``sum(m p) / sum(m)`` of each
+    merge root differentiates into two terms that cancel far below their
+    float32 rounding, so every float32 engine, the oracle too, lies from
+    5% to several times the largest away from the float64 gradient, and
+    which element is off depends on the order autograd sums a leaf's terms
+    (the single-device kernel path packs both operands of its pair pass
+    into one tensor, the ring and the oracle take two). So that gradient
+    is held in float64: the oracle's ring against the single-device
+    oracle, every leaf at GRAD_GATE. The float32 ones are printed against
+    the float64 one, with every value at the element where the two
+    single-device engines differ most. B2 must launch, and with more than
+    one rank on tiles of other ranks' rows."""
+    child = os.path.join(tempfile.mkdtemp(prefix="grad_child_"), "child.py")
+    with open(child, "w") as f:
+        f.write(PHASE39_GRAD_CHILD)
+    t0 = time.perf_counter()
+    rc, out, err = finish(torchrun(ranks, [child, HERE, device, str(n)]),
+                          600)
+    check(rc == 0, f"sharded gradient child ({ranks} ranks, {device}) "
+                   f"failed:\n{out[-2000:]}{err[-3000:]}")
+    res = json.loads(out.strip().splitlines()[-1])
+
+    def fmt(xs):
+        return ", ".join(f"{e:.3e}" for e in xs)
+
+    for row in res["rows"]:
+        momentum = row["mode"] == "momentum"
+        print(f"sharded gradient, {ranks} rank(s) on {res['backend']}, "
+              f"default scene N={n}, {row['steps']} {row['integrator']} "
+              f"steps, {row['mode']}, remat: d/d(pos, vel, mass) "
+              f"{fmt(row['err'])} of the largest |grad| against the "
+              f"single-device kernel path, {fmt(row['err_oracle'])} against "
+              f"the single-device oracle (gate {GRAD_GATE}), bitwise "
+              f"{row['bitwise']}; the oracle against the kernel path "
+              f"{fmt(row['engines'])}; gradient {row['sharded_ms']:.3f} ms "
+              f"sharded against {row['single_ms']:.3f} ms single-device "
+              f"(host wall, warm)")
+        gated = row["err"][:2] + row["err_oracle"][:2]
+        if momentum:
+            vs = row["mass_vs_f64"]
+            print(f"  float64, the oracle's ring against the single-device "
+                  f"oracle: d/d(pos, vel, mass) {fmt(row['err64'])} (gate "
+                  f"{GRAD_GATE}); float32 mass gradients against float64: "
+                  f"sharded {vs['sharded']:.3e}, kernel path "
+                  f"{vs['kernel']:.3e}, oracle {vs['oracle']:.3e} of the "
+                  f"largest; where kernel path and oracle differ most: "
+                  f"{json.dumps(row['worst'])}")
+            gated += row["err64"]
+        else:
+            gated += row["err"][2:] + row["err_oracle"][2:]
+        check(row["finite"] and row["nonzero"] and max(gated) < GRAD_GATE,
+              f"sharded gradient {row}: off the single-device one")
+    b2, hops = res["launches"]["b2"], res["launches"]["b2_ring_hops"]
+    print(f"sharded gradients ({time.perf_counter() - t0:.1f} s in "
+          f"{ranks} process(es)): B1 {res['launches']['b1']} and B2 {b2} "
+          f"launches on rank 0, {hops} of B2's on tiles of other ranks' "
+          f"rows" + ("" if ranks > 1 else " (one rank: every tile is the "
+                     "whole array at offsets 0 and 0)"))
+    check(b2 > 0 and (ranks == 1 or hops > 0),
+          f"the sharded gradient launched B2 {b2} times, {hops} on ring hops")
+    return res
+
+
+def start_auto_resume():
+    """39. autoResume under shards: the CLI as two gloo ranks on this
+    machine's CPU (NCCL takes one rank a card, and shards must exceed 1)
+    under ``torch.distributed.run --max-restarts 1``, 64 bodies for 40
+    steps with a checkpoint every 10, straight and, at the same time, with
+    a fault: the child script makes rank 1 raise at step 20 on the first
+    attempt. Returns the two launches for ``check_auto_resume``."""
+    work = tempfile.mkdtemp(prefix="resume_shards_")
+    child = os.path.join(work, "child.py")
+    with open(child, "w") as f:
+        f.write(RESUME_CHILD)
+    args = ["--device", "cpu", "--no-images", "--steps", "40", "--set",
+            "particleCount=64", "--set", "fieldWidth=5000", "--set",
+            "fieldHeight=5000", "--set", "shards=2", "--set",
+            "autoResume=1", "--set", "maxRetries=1", "--set",
+            "checkpointEvery=10", "--set", "checkpointKeep=0"]
+    return {tag: (os.path.join(work, tag), torchrun(
+        2, [child, HERE, *args, "--set",
+            f"checkpointPath={os.path.join(work, tag)}"]
+        + (["--fault"] if tag == "fault" else []), restarts=1))
+        for tag in ("straight", "fault")}
+
+
+def check_auto_resume(runs):
+    """The relaunched run must end on the straight run's final state, bit
+    for bit."""
+    final = []
+    for tag, (ck, proc) in runs.items():
+        rc, out, err = finish(proc, 300)
+        check(rc == 0, f"sharded autoResume {tag} run failed:\n"
+                       f"{out[-2000:]}{err[-3000:]}")
+        final.append(np.load(os.path.join(ck, "step_000000040.npz")))
+    check("injected fault at step 20" in err
+          and "Relaunch 1 of 1: resuming from" in out,
+          f"the faulted run was not relaunched:\n{out[-2000:]}")
+    same = all(np.array_equal(final[0][k], final[1][k])
+               for k in ("pos", "vel", "mass", "radius", "sim_time"))
+    relaunch = [ln for ln in out.splitlines() if ln.startswith("Relaunch")]
+    print(f"sharded autoResume (2 gloo ranks on the CPU, torchrun "
+          f"--max-restarts 1, a fault at step 20 on the first attempt): "
+          f"{relaunch}; final state bitwise equal to the straight run's: "
+          f"{same}")
+    check(same, "the relaunched sharded run left the straight run")
+
+
+def cross_tile_merges(scene, ranks, pairs=64, seed=40):
+    """The default scene with ``pairs`` overlapping pairs whose bodies lie
+    in different ranks' tiles (each body placed half a radius from its
+    partner), so momentum-mode winners live in other ranks' tiles."""
+    pos, vel, mass, radius = (np.array(x) for x in scene)
+    m = len(mass) // ranks
+    rng = np.random.RandomState(seed)
+    for _ in range(pairs):
+        a, b = rng.choice(ranks, 2, replace=False)
+        i, j = a * m + rng.randint(m), b * m + rng.randint(m)
+        pos[i] = pos[j] + np.float32([0.5 * radius[j], 0.0])
+    return pos, vel, mass, radius
+
+
+def phase_ring_backward(dev, arrays, mode, ranks, label, timing=False):
+    """40. B2 around the ring in this process: for every (rank, hop), B2 on
+    the rank's rows against the hop's tile with their global offsets,
+    against ``raw_backward_reference`` at BWD_GATE; the i sides summed per
+    rank and the j sides summed onto their owners against one B2 over all
+    N. In momentum mode each row's best-mass cotangent goes to the hop
+    whose candidate wins the fold (``combine_accumulators``'s rule), as
+    autograd routes it. Returns (abs_rel_err over every tile, times or
+    None)."""
+    from nbodyax_torch.physics.kernels import (_NEG_INF, body_features,
+                                               tile_accumulators_raw)
+    from nbodyax_torch.physics.kernels_bwd import (raw_backward,
+                                                   raw_backward_reference)
+    feats = body_features(*(torch.as_tensor(x, device=dev) for x in arrays))
+    n = feats.shape[0]
+    m = n // ranks
+    g = cotangent(n, dev)
+    kw = dict(mode=mode, eps=0.0, growth_rate=0.1)
+    momentum = mode == "momentum"
+
+    def rows(r):
+        return slice(r * m, (r + 1) * m)
+
+    parents, wins, remote = {}, {}, 0
+    if momentum:
+        for r in range(ranks):
+            ids = r * m + torch.arange(m, dtype=torch.int32, device=dev)
+            best = torch.full((m,), -torch.inf, device=dev)
+            par = ids.clone()
+            win = torch.full((m,), -1, dtype=torch.int64, device=dev)
+            for h in range(ranks):
+                jr = (r + h) % ranks
+                raw, pj = tile_accumulators_raw(feats[rows(r)],
+                                                feats[rows(jr)], r * m,
+                                                jr * m, **kw)
+                parents[r, h] = pj
+                cand = raw[:, 6] > _NEG_INF
+                bm = torch.where(cand, raw[:, 6], -torch.inf)
+                pc = torch.where(cand, pj, ids)
+                b_wins = (bm > best) | ((bm == best) & (pc < par))
+                best = torch.where(b_wins, bm, best)
+                par = torch.where(b_wins, pc, par)
+                win = torch.where(b_wins, h, win)
+            wins[r] = win
+            remote += int((win > 0).sum())
+    sum_i, sum_j = torch.zeros_like(feats), torch.zeros_like(feats)
+    worst, absrel = 0.0, (0.0, 0.0)
+    for r in range(ranks):
+        for h in range(ranks):
+            jr = (r + h) % ranks
+            gi = g[rows(r)]
+            if momentum:
+                gi = gi.clone()
+                gi[:, 6] = torch.where(wins[r] == h, gi[:, 6], 0.0)
+            args = (feats[rows(r)], feats[rows(jr)], r * m, jr * m,
+                    parents.get((r, h)), gi)
+            got = raw_backward(*args, **kw)
+            want = raw_backward_reference(*args, **kw)
+            err = bwd_errors(got, want)
+            worst = max(worst, *err)
+            check(max(err) < BWD_GATE and all(
+                bool(torch.isfinite(x).all()) for x in got),
+                f"B2 ring tile {label} rank {r} hop {h}: {err}")
+            # each channel (the mass one too) over its own largest
+            ar = abs_rel_err(torch.cat(got), torch.cat(want))
+            check(ar[1] < BWD_GATE, f"B2 ring tile {label} rank {r} hop "
+                                    f"{h}: a channel off by {ar[1]}")
+            absrel = (max(absrel[0], ar[0]), max(absrel[1], ar[1]))
+            sum_i[rows(r)] += got[0]
+            sum_j[rows(jr)] += got[1]
+    par_full = (tile_accumulators_raw(feats, feats, 0, 0, **kw)[1]
+                if momentum else None)
+    full = raw_backward(feats, feats, 0, 0, par_full, g, **kw)
+    errs = bwd_errors((sum_i, sum_j), full)
+    print(f"B2 around the ring {label}, {mode}, P={ranks} (tiles of "
+          f"{m} x {m}): every (rank, hop) against its plain version, worst "
+          f"{worst:.3e}, each channel over its own largest "
+          f"{absrel[1]:.3e} (gate {BWD_GATE}); i sides summed per rank "
+          f"{errs[0]:.3e}, j sides summed onto their owners {errs[1]:.3e} "
+          f"of the single-device B2 over all N"
+          + (f"; {remote} rows whose winning candidate lies in another "
+             f"rank's tile" if momentum else ""))
+    check(max(errs) < BWD_GATE, f"B2 ring sums {label}: {errs}")
+    check(not momentum or remote > 0, f"{label}: no winner in another "
+                                      f"rank's tile")
+    if not timing:
+        return absrel, None
+    f0, f1, g0 = feats[rows(0)], feats[rows(1)], g[rows(0)]
+
+    def tile():
+        return raw_backward(f0, f1, 0, m, None, g0, **kw)
+
+    def rank0():
+        for h in range(ranks):
+            raw_backward(f0, feats[rows(h)], 0, h * m, None, g0, **kw)
+    ms = time_ms(tile, reps=10)
+    bound = b2_bound(m)
+    dms = report_device(f"B2 ring tile (hop 1, offsets 0 and {m})", m, tile,
+                        B2_TAGS, ms, bound, reps=10)
+    plain = time_ms(lambda: raw_backward_reference(f0, f1, 0, m, None, g0,
+                                                   **kw), reps=2, warm=1)
+    r0 = time_ms(rank0, reps=3)
+    print(f"B2 ring tile {m} x {m}: wrapper call {ms:.4f} ms, device "
+          f"{dms:.4f} ms, plain version {plain:.4f} ms; rank 0's summed "
+          f"backward over its {ranks} hops {r0:.4f} ms (CUDA events; one "
+          f"process on one card)")
+    return absrel, {"ms": ms, "device_ms": dms, "plain_ms": plain,
+                    "library_ms": None, "bound": bound}
 
 
 def kernel_name(mangled):
@@ -3572,7 +4029,17 @@ def main() -> int:
                 dev, *exact_scene(dev, particle_count=1 << 22,
                                   scene="galaxy", softening=100.0), 8,
                 rows_of=[0], label="suite config 5 galaxy N=4M exact")),
-            ("39 the collectives on CUDA tensors", phase_collectives_on_cuda)):
+            ("39 the collectives on CUDA tensors", lambda: shard.update(
+                grads=phase_collectives_on_cuda())),
+            ("40 B2 around the ring, default scene",
+             lambda: phase_ring_backward(
+                 dev, cross_tile_merges(scene, 8), "momentum", 8,
+                 "default scene N=16384 with cross-tile merges")),
+            ("40 B2 around the ring, config 3's scene", lambda: shard.update(
+                ring=phase_ring_backward(
+                    dev, exact_scene(dev, particle_count=131072)[0][:4],
+                    "reference", 8, "suite config 3 N=131072",
+                    timing=True)))):
         t0 = time.perf_counter()
         phase()
         print(f"phase {name}: {time.perf_counter() - t0:.1f} s")
@@ -3613,7 +4080,11 @@ def main() -> int:
          b5_3d_err, bh3_times["B5"]),
         ("near_kernel_slice", "near_kernel.cu",
          "nbodyax/physics/near_pallas.py:116", shard["launches"],
-         shard["slice"][1], shard["slice"][0])]
+         shard["slice"][1], shard["slice"][0]),
+        ("pair_bwd_kernel_ring", "pair_bwd_kernel.cu",
+         "nbodyax/physics/kernels_bwd.py:79",
+         shard["grads"]["launches"]["b2"], shard["ring"][0],
+         shard["ring"][1])]
     print(smi)
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": f"nbodyax_torch/csrc/{src}",

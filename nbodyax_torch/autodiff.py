@@ -28,6 +28,26 @@ Design notes:
   derivative is one-sided.
 - Everything is float32; finite-difference checks need O(1)-conditioned
   losses (see tests/test_torch_autodiff.py).
+- ``forceModel=bh`` is forward-only, as in ``nbodyax``: a gradient request
+  through it raises ``NotImplementedError``.
+
+Across shards (``shards > 1``) the same ``make_loss`` runs over
+``sharding.make_sharded_step``, one process a shard under torchrun:
+
+    python -m torch.distributed.run --nproc-per-node P my_script.py
+
+where each rank builds ``group = sharding.make_group(P, device)``, keeps
+its rows (``shard_state(pad_to_shards(state, P), group)``), makes them
+require grad and calls ``torch.autograd.grad`` on its share of the loss, a
+sum over its bodies (the shares add up to the whole loss). The ring's
+shifts and the gathers are ``torch.autograd.Function``s whose backward
+passes are their transposes (``sharding/mesh.py``): each hop's pair
+kernel call runs B2 with the hop's global offsets, and the remote tiles'
+gradients travel back around the ring, so every rank ends with its rows
+of the whole loss's gradient, as ``nbodyax`` does through its
+``ppermute`` ring (tests/test_torch_sharding_grad.py). Adaptive dt under
+shards is forward-only in both packages: the minimum over ranks raises
+``NotImplementedError`` in the backward.
 """
 
 from __future__ import annotations

@@ -22,7 +22,12 @@ line.
         -m nbodyax_torch.cli --set shards=P [--device cpu] ...
 
 (NCCL on cards, one rank a card; gloo with ``--device cpu``). Rank 0
-alone prints, logs and writes frames and checkpoints.
+alone prints, logs and writes frames and checkpoints. With ``autoResume``
+and ``checkpointEvery`` the launch also takes ``--max-restarts`` of at
+least ``maxRetries``: a failure relaunches every rank, and the relaunched
+ranks resume from the latest checkpoint. A failure that one card would not
+retry (``--debug-nans``'s ``FloatingPointError``, a kernel build, a
+``ValueError``) makes the relaunched ranks stop at once.
 """
 
 from __future__ import annotations

@@ -73,8 +73,17 @@ share (the window schedule, log and probe points, bhAdapt's knobs,
 compaction, ``debug_nans``) is taken on the whole state, which every rank
 gathers at each window's end, so all ranks take the same collectives in
 the same order. Rank 0 alone prints, logs, profiles and writes frames and
-checkpoints. autoResume's in-process retry is not ported for shards
-(``NotImplementedError``); ``--resume`` works.
+checkpoints. autoResume cannot retry in the process: a failed rank breaks
+the process group. So a sharded autoResume run is launched with torchrun's
+``--max-restarts`` of at least ``maxRetries`` (else ``ValueError``), a
+failure is raised, torchrun relaunches every rank, and each relaunched
+rank resumes from the latest checkpoint (``_relaunch_resume``), as
+``--resume auto`` would; the starting state is checkpointed as on one
+card. What one card does not retry (a failure that is no
+``RuntimeError``, or one of ``_NOT_RETRIED``) is not retried here either:
+the failing rank leaves a mark beside the checkpoints, and the relaunched
+ranks raise ``RelaunchRefused`` before they run. On several hosts
+``checkpointPath`` must be one that every rank reads.
 
 ``forceModel=bh``: ``resolve_bh_config`` resolves the auto knobs against
 the starting state (``pick_levels``), each log point reads ``bh_health``
@@ -152,6 +161,15 @@ class GraphCaptureError(RuntimeError):
 # ``debug_nans`` hit, FloatingPointError, is no RuntimeError either)
 _NOT_RETRIED = (FrameWriteError, NotImplementedError, KernelCompileError,
                 GraphCaptureError, FloatingPointError)
+
+# under shards, the file beside the checkpoints that tells a relaunched
+# attempt the failure before it is not retried (``_mark_not_retried``)
+_NOT_RETRIED_MARK = "not_retried.txt"
+
+
+class RelaunchRefused(RuntimeError):
+    """A relaunched sharded attempt found that the attempt before it failed
+    in a way one card does not retry: it raises this instead of resuming."""
 
 # the fields ``debug_nans`` checks after each window, in its message's terms
 _NAN_FIELDS = ("pos", "vel", "mass", "radius", "conservation vec")
@@ -653,21 +671,38 @@ def run_simulation(cfg: SimConfig, *, device="cuda", quiet: bool = False,
 
     ``shards > 1``: every rank of a ``torch.distributed.run`` launch calls
     this with the same config (see the module docstring); each returns the
-    whole final state."""
-    if cfg.shards > 1 and cfg.auto_resume:
-        raise NotImplementedError(
-            "autoResume under shards > 1 is not ported yet (ROADMAP A11, "
-            "queue item 3): restart the launch with --resume auto")
+    whole final state. There autoResume retries by torchrun's relaunch:
+
+        python -m torch.distributed.run --max-restarts <maxRetries> \\
+            --nproc-per-node P -m nbodyax_torch.cli --set shards=P \\
+            --set autoResume=1 --set checkpointEvery=K ...
+
+    a failure is raised, every rank is started again, and the relaunched
+    ranks resume from the latest checkpoint (``_relaunch_resume``). A
+    failure that one card would not retry (not a ``RuntimeError``, or one
+    of ``_NOT_RETRIED``) leaves a mark beside the checkpoints, and the
+    relaunched ranks raise ``RelaunchRefused`` at once instead of running
+    again."""
     dev = resolve_device(device)
     attempts = 1 + (cfg.max_retries if cfg.auto_resume and
                     cfg.checkpoint_every else 0)
+    relaunch = cfg.shards > 1 and attempts > 1
+    if relaunch:
+        resumed = _relaunch_resume(cfg, quiet)
+        if resumed is not cfg:
+            cfg, state = resumed, None
+        attempts = 1
     for attempt in range(attempts):
         try:
             return _run_simulation_once(cfg, dev, quiet=quiet, state=state,
                                         profile_dir=profile_dir,
                                         debug_nans=debug_nans, eager=_eager)
-        except RuntimeError as e:
-            if isinstance(e, _NOT_RETRIED) or attempt + 1 >= attempts:
+        except Exception as e:
+            retried = (isinstance(e, RuntimeError)
+                       and not isinstance(e, _NOT_RETRIED))
+            if relaunch and not retried:
+                _mark_not_retried(cfg, e)
+            if not retried or attempt + 1 >= attempts:
                 raise
             ck = latest_checkpoint(cfg.checkpoint_path)
             if ck is None:
@@ -680,6 +715,59 @@ def run_simulation(cfg: SimConfig, *, device="cuda", quiet: bool = False,
             cfg = dataclasses.replace(cfg, resume_from=ck)
             state = None
     raise AssertionError("unreachable")
+
+
+def _relaunch_resume(cfg: SimConfig, quiet: bool) -> SimConfig:
+    """autoResume under ``shards > 1``: a rank that fails breaks the
+    process group, so the retry is torchrun's relaunch of every rank
+    (``--max-restarts``), which must allow ``maxRetries`` of them
+    (``ValueError`` otherwise, before anything runs or is written). A
+    relaunched rank (``TORCHELASTIC_RESTART_COUNT`` > 0) resumes from the
+    latest checkpoint, as ``--resume auto`` does; every rank reads the same
+    one, since rank 0 alone writes them. A relaunch after a failure that
+    ``_mark_not_retried`` marked raises ``RelaunchRefused`` instead."""
+    allowed = int(os.environ.get("TORCHELASTIC_MAX_RESTARTS", "0"))
+    if allowed < cfg.max_retries:
+        raise ValueError(
+            f"autoResume under shards={cfg.shards} retries by relaunching "
+            f"every rank: launch with python -m torch.distributed.run "
+            f"--max-restarts {cfg.max_retries} --nproc-per-node "
+            f"{cfg.shards} -m nbodyax_torch.cli ... (this launch allows "
+            f"{allowed} restarts; maxRetries={cfg.max_retries})")
+    restart = int(os.environ.get("TORCHELASTIC_RESTART_COUNT", "0"))
+    mark = os.path.join(cfg.checkpoint_path, _NOT_RETRIED_MARK)
+    if not restart:
+        # a new launch: an earlier launch's mark no longer holds. Rank 0
+        # clears it before it joins the group, so before any rank can fail
+        if os.environ.get("RANK", "0") == "0" and os.path.exists(mark):
+            os.remove(mark)
+        return cfg
+    if os.path.exists(mark):
+        with open(mark) as f:
+            raise RelaunchRefused(
+                f"relaunch {restart} of {allowed} refused: the attempt "
+                f"before it failed with {f.read().strip()}, which resuming "
+                f"from a checkpoint cannot mend (as one card does not "
+                f"retry it); fix the cause and launch again")
+    ck = latest_checkpoint(cfg.checkpoint_path)
+    if ck is None:
+        return cfg
+    if not quiet:
+        print(f"Relaunch {restart} of {allowed}: resuming from {ck}")
+    return dataclasses.replace(cfg, resume_from=ck)
+
+
+def _mark_not_retried(cfg: SimConfig, e: BaseException) -> None:
+    """Under torchrun's relaunch, tell the next attempt that this failure
+    is one a checkpoint cannot mend: a mark beside the checkpoints (where
+    every rank reads), written before the failing rank exits, so before
+    torchrun starts the next attempt."""
+    os.makedirs(cfg.checkpoint_path, exist_ok=True)
+    mark = os.path.join(cfg.checkpoint_path, _NOT_RETRIED_MARK)
+    tmp = f"{mark}.{os.getpid()}"
+    with open(tmp, "w") as f:
+        f.write(f"{type(e).__name__}: {e}\n")
+    os.replace(tmp, mark)
 
 
 def _run_simulation_once(cfg: SimConfig, dev: torch.device, *, quiet: bool,

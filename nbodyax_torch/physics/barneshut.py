@@ -711,7 +711,15 @@ def bh_accumulators(pos, vel, mass, radius, *, eps: float = 0.0,
     channels, and exact any-distance collisions for the ``n_giants``
     largest-radius bodies (0 disables). ``near_kernel`` is the
     ``bhPallas`` knob (``resolve_near_kernel``); ``shard`` and ``nshards``
-    are ``bh_cellrange_accumulators``'s."""
+    are ``bh_cellrange_accumulators``'s. Forward-only, as nbodyax's bh
+    step (nbodyax/autodiff.py): under autograd it raises
+    ``NotImplementedError`` (its kernels have no backward, so a gradient
+    would lack the near field's part)."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (pos, vel, mass, radius)):
+        raise NotImplementedError(
+            "forceModel=bh is forward-only: differentiate the exact "
+            "step (forceModel=exact)")
     if far not in ("fmm", "direct"):
         raise ValueError(f"unknown bhFar value {far!r}")
     if near not in ("rows", "slots"):

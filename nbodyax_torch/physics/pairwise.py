@@ -68,7 +68,11 @@ def empty_accumulators(ii: torch.Tensor, dim: int = 2) -> PairAccumulators:
 
 def combine_accumulators(a: PairAccumulators,
                          b: PairAccumulators) -> PairAccumulators:
-    """Fold partial accumulators from two disjoint j sets (associative)."""
+    """Fold partial accumulators from two disjoint j sets (associative).
+    best_mass is the winner's, the larger value or on a tie the lower
+    parent id (``torch.maximum``'s value): the winner takes the whole of
+    its cotangent, as in one pass over both sets, where ``torch.maximum``
+    (and ``jnp.maximum``) would split a tie's half and half."""
     b_wins = (b.best_mass > a.best_mass) | (
         (b.best_mass == a.best_mass) & (b.parent < a.parent))
     return PairAccumulators(
@@ -76,7 +80,7 @@ def combine_accumulators(a: PairAccumulators,
         gained_mass=a.gained_mass + b.gained_mass,
         gained_radius=a.gained_radius + b.gained_radius,
         died=a.died | b.died,
-        best_mass=torch.maximum(a.best_mass, b.best_mass),
+        best_mass=torch.where(b_wins, b.best_mass, a.best_mass),
         parent=torch.where(b_wins, b.parent, a.parent),
         dv=a.dv + b.dv)
 

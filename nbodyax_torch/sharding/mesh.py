@@ -20,7 +20,14 @@ Shard r owns the rows [r n / P, (r + 1) n / P) of a capacity ``n`` that
 ``ShardGroup`` holds the rank, the size, the device and the process group,
 and the four collectives the steps use. A CUDA tensor goes through NCCL
 only: gloo, which runs the CPU groups, never sees one, and no collective
-copies a card's tensor to the host.
+copies a card's tensor to the host. Each collective is a
+``torch.autograd.Function`` whose backward is its transpose (the shift
+the other way round the ring, reduce_scatter for all_gather and the
+reverse; the minimum over ranks raises, as ``lax.pmin`` has no
+derivative); its forward makes the calls it made before it had one. Under
+torchrun each launch attempt's group keys its store entries by the attempt
+(``TORCHELASTIC_RESTART_COUNT``), so a relaunch never reads the addresses
+of the attempt before it.
 """
 
 from __future__ import annotations
@@ -60,11 +67,98 @@ class _Shift:
         return self.bufs
 
 
+def _post_shift(tensors, dst: int, src: int, group) -> _Shift:
+    """Send ``tensors`` to rank ``dst`` and receive rank ``src``'s into new
+    buffers of the same shapes, as one ``batch_isend_irecv``."""
+    bufs = [torch.empty_like(t) for t in tensors]
+    ops = [dist.P2POp(dist.isend, t.contiguous(), dst, group)
+           for t in tensors]
+    ops += [dist.P2POp(dist.irecv, b, src, group) for b in bufs]
+    return _Shift(dist.batch_isend_irecv(ops), bufs)
+
+
+class _ShiftFn(torch.autograd.Function):
+    """The ring shift. The forward posts the shift and hands its works to
+    the caller (``works``), who waits before reading the outputs, so the
+    transfer runs beside the current hop. The backward is its transpose:
+    the received tiles' cotangents go back to rank r + 1 and rank r - 1's
+    come in, so the gradient of the tile held at hop h reaches its owner
+    after h backward shifts."""
+
+    @staticmethod
+    def forward(ctx, g, works, *tensors):
+        ctx.g = g
+        shift = _post_shift(tensors, (g.rank - 1) % g.size,
+                            (g.rank + 1) % g.size, g.group)
+        works.extend(shift.works)
+        return tuple(shift.bufs)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, *grads):
+        g = ctx.g
+        back = _post_shift(grads, (g.rank + 1) % g.size,
+                           (g.rank - 1) % g.size, g.group).wait()
+        return (None, None, *back)
+
+
+class _AllGatherFn(torch.autograd.Function):
+    """all_gather; the backward is reduce_scatter_sum of the cotangent. The
+    output is made here, where grad mode is off (gloo's gather into a
+    tensor writes views of its output, which autograd refuses in grad
+    mode)."""
+
+    @staticmethod
+    def forward(ctx, x, g):
+        ctx.g = g
+        return g._all_gather(x)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        return ctx.g._reduce_scatter_sum(grad), None
+
+
+class _ReduceScatterFn(torch.autograd.Function):
+    """reduce_scatter_sum; the backward is all_gather of the cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, g):
+        ctx.g = g
+        return g._reduce_scatter_sum(x)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        return ctx.g._all_gather(grad), None
+
+
+class _AllMinFn(torch.autograd.Function):
+    """all_min: the forward is the minimum over ranks, and the backward
+    raises, as nbodyax's ``lax.pmin`` has no differentiation rule (sharded
+    adaptive dt is forward-only in both packages)."""
+
+    @staticmethod
+    def forward(ctx, x, g):
+        return g._all_min(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        raise NotImplementedError(
+            "the minimum over ranks (adaptive dt under shards > 1) has no "
+            "gradient, as nbodyax's lax.pmin has none: differentiate a "
+            "sharded run with adaptiveDt=0")
+
+
 @dataclasses.dataclass(frozen=True)
 class ShardGroup:
     """One rank's view of the shard group. ``group`` None is the default
     process group. The collectives take and return tensors on ``device``
-    and are called by every rank in the same order."""
+    and are called by every rank in the same order. Each is a
+    ``torch.autograd.Function`` whose backward is its transpose
+    (``all_min``'s raises); every rank's backward takes the transposed
+    collectives in the same order, since every rank built the same
+    graph."""
 
     rank: int
     size: int
@@ -74,31 +168,36 @@ class ShardGroup:
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """The ranks' ``x`` (equal shapes) stacked along dim 0 in rank
         order."""
+        return _AllGatherFn.apply(x, self)
+
+    def reduce_scatter_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum of the ranks' ``x`` over rank, this rank's 1/size of dim 0."""
+        return _ReduceScatterFn.apply(x, self)
+
+    def shift(self, tensors) -> _Shift:
+        """Start the ring shift: send ``tensors`` to rank r - 1 and receive
+        rank r + 1's into new buffers of the same shapes."""
+        works = []
+        bufs = _ShiftFn.apply(self, works, *tensors)
+        return _Shift(works, list(bufs))
+
+    def all_min(self, x: torch.Tensor) -> torch.Tensor:
+        """The elementwise minimum of the ranks' ``x``."""
+        return _AllMinFn.apply(x, self)
+
+    def _all_gather(self, x: torch.Tensor) -> torch.Tensor:
         x = x.contiguous()
         out = x.new_empty((self.size * x.shape[0],) + tuple(x.shape[1:]))
         _all_gather(out, x, group=self.group)
         return out
 
-    def reduce_scatter_sum(self, x: torch.Tensor) -> torch.Tensor:
-        """Sum of the ranks' ``x`` over rank, this rank's 1/size of dim 0."""
+    def _reduce_scatter_sum(self, x: torch.Tensor) -> torch.Tensor:
         x = x.contiguous()
         out = x.new_empty((x.shape[0] // self.size,) + tuple(x.shape[1:]))
         _reduce_scatter(out, x, group=self.group)
         return out
 
-    def shift(self, tensors) -> _Shift:
-        """Start the ring shift: send ``tensors`` to rank r - 1 and receive
-        rank r + 1's into new buffers of the same shapes."""
-        prev = (self.rank - 1) % self.size
-        nxt = (self.rank + 1) % self.size
-        bufs = [torch.empty_like(t) for t in tensors]
-        ops = [dist.P2POp(dist.isend, t.contiguous(), prev, self.group)
-               for t in tensors]
-        ops += [dist.P2POp(dist.irecv, b, nxt, self.group) for b in bufs]
-        return _Shift(dist.batch_isend_irecv(ops), bufs)
-
-    def all_min(self, x: torch.Tensor) -> torch.Tensor:
-        """The elementwise minimum of the ranks' ``x``."""
+    def _all_min(self, x: torch.Tensor) -> torch.Tensor:
         y = x.clone()
         dist.all_reduce(y, op=dist.ReduceOp.MIN, group=self.group)
         return y
@@ -125,8 +224,16 @@ def maybe_init_distributed(device) -> Optional[ShardGroup]:
                     "takes one rank a card")
             dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
             torch.cuda.set_device(dev)
-        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
-                                timeout=GROUP_TIMEOUT)
+        # under torchrun the store outlives a relaunch, and a rank of the
+        # new attempt would read the old attempt's addresses: each
+        # attempt's group takes keys of its own
+        attempt = os.environ.get("TORCHELASTIC_RESTART_COUNT", "0")
+        store, rank, size = next(dist.rendezvous("env://",
+                                                 timeout=GROUP_TIMEOUT))
+        dist.init_process_group(
+            "nccl" if dev.type == "cuda" else "gloo",
+            store=dist.PrefixStore(f"attempt_{attempt}/", store),
+            rank=rank, world_size=size, timeout=GROUP_TIMEOUT)
     elif dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return ShardGroup(dist.get_rank(), dist.get_world_size(), dev)

@@ -16,6 +16,13 @@ all-gathered, resolved on every rank alike and sliced back (pointer
 doubling is O(n log n), small beside the O(n^2 / P) pairs). Adaptive dt is
 the minimum over ranks (``step_dt(..., group)``). euler, leapfrog (the
 ring twice a step) and yoshida4 (four times) run as in ``physics/step.py``.
+
+Reverse mode: the shifts and gathers are differentiable (``mesh.py``), so
+each hop's B1 call (``tile_accumulators_raw``) gets its backward, B2 with
+the hop's global offsets, and the tile's gradient goes back round the ring
+to its owner. A momentum merge's best-mass cotangent reaches only the hop
+whose candidate won the fold (``combine_accumulators``), which routes it to
+that parent's mass. Adaptive dt under shards has no gradient.
 """
 
 from __future__ import annotations

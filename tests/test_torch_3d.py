@@ -647,12 +647,12 @@ def test_cli_runs_3d(tmp_path, capsys):
     assert raw.startswith(b"P5\n128 128\n255\n")
 
 
-def test_bh_in_3d_raises_and_names_its_item():
+def test_bh_in_3d_raises_and_names_its_item(tmp_path, monkeypatch):
     """3-D bh runs on a single device (tests/test_torch_bh_3d.py and
     test_torch_bh_3d_slice.py hold it to nbodyax): a direct 3-D call gives
-    3-D accumulators, and the driver runs it. What is left of sharded 3-D
-    bh, autoResume's in-process retry under shards, raises and names
-    ROADMAP item A11."""
+    3-D accumulators, and the driver runs it. Sharded 3-D bh with
+    autoResume outside a torchrun launch that allows its retries raises
+    before it runs and names the launch line (``--max-restarts``)."""
     from nbodyax_torch.physics.barneshut import bh_accumulators
     arrays = tensors(random_state_3d(256, seed=8))
     acc = bh_accumulators(*arrays, eps=10.0, mode="reference", levels=3,
@@ -662,6 +662,9 @@ def test_bh_in_3d_raises_and_names_its_item():
                     force_model="bh", save_images=False)
     assert run_simulation(cfg, device="cpu",
                           quiet=True).state.pos.shape == (64, 3)
-    cfg.shards, cfg.auto_resume = 2, True
-    with pytest.raises(NotImplementedError, match="A11"):
+    monkeypatch.delenv("TORCHELASTIC_MAX_RESTARTS", raising=False)
+    cfg.shards, cfg.auto_resume, cfg.checkpoint_every = 2, True, 1
+    cfg.checkpoint_path = str(tmp_path / "ck")
+    with pytest.raises(ValueError, match="--max-restarts 3"):
         run_simulation(cfg, device="cpu", quiet=True)
+    assert not (tmp_path / "ck").exists()

@@ -12,8 +12,8 @@ CPU.
 - a 10-step 3-D bh CLI run (N = 512) whose merges (alive mask exact) equal
   nbodyax's driver started from the same state; the port's 3-D uniform
   scene is its own draw, so nbodyax takes it over through ``make_state``;
-- what still raises: autoResume under ``shards > 1`` (ROADMAP A11) with
-  3-D bh.
+- autoResume under ``shards > 1`` with 3-D bh outside a torchrun launch
+  that allows its retries: a ``ValueError`` naming the launch line.
 
 nbodyax runs with ``bhPallas=off``: its own tests hold its Pallas kernels
 to that engine. Its results are computed once per module.
@@ -243,12 +243,16 @@ def test_resolve_bh_config_3d_matches_nbodyax():
     assert got.bh_levels == 2 and resolve_bh_config(got, st) == got
 
 
-def test_sharded_3d_bh_raises_and_names_its_item():
-    """Sharded 3-D bh runs (tests/test_torch_sharding_bh.py); its
-    autoResume retry is what is left of ROADMAP item A11, and it raises
-    and says so."""
+def test_sharded_3d_bh_raises_and_names_its_item(tmp_path, monkeypatch):
+    """Sharded 3-D bh runs (tests/test_torch_sharding_bh.py); with
+    autoResume it retries by torchrun's relaunch, and outside a launch
+    that allows the retries it raises before it runs, naming the launch
+    line."""
+    monkeypatch.delenv("TORCHELASTIC_MAX_RESTARTS", raising=False)
     cfg = SimConfig(particle_count=64, total_iterations=1, dimensions=3,
                     force_model="bh", shards=2, save_images=False,
-                    auto_resume=True)
-    with pytest.raises(NotImplementedError, match="A11"):
+                    auto_resume=True, checkpoint_every=1,
+                    checkpoint_path=str(tmp_path / "ck"))
+    with pytest.raises(ValueError, match="--max-restarts 3"):
         run_simulation(cfg, device="cpu", quiet=True)
+    assert not (tmp_path / "ck").exists()

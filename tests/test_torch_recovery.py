@@ -164,8 +164,12 @@ def test_unmendable_failures_are_not_retried(tmp_path, monkeypatch, error):
 
 
 def test_unported_config_raises_before_any_attempt(tmp_path, monkeypatch):
+    """autoResume under shards outside a torchrun launch that allows its
+    retries (the last config that once raised as unported) fails before
+    any attempt runs."""
     calls = count_attempts(monkeypatch)
-    with pytest.raises(NotImplementedError, match="A11"):
+    monkeypatch.delenv("TORCHELASTIC_MAX_RESTARTS", raising=False)
+    with pytest.raises(ValueError, match="--max-restarts 2"):
         driver.run_simulation(make_cfg(tmp_path, shards=2), device="cpu",
                               quiet=True)
     assert calls["n"] == 0

@@ -20,8 +20,9 @@ the fake CPU devices of ``tests/conftest.py``.
 - ``--resume`` from the P = 2 run's step-10 checkpoint in a new launch ends
   on the straight run's step-20 checkpoint, bit for bit.
 - A shard count other than the world size is a ``ValueError``, in one
-  process and under torchrun; autoResume under shards is a
-  ``NotImplementedError`` naming its ROADMAP item.
+  process and under torchrun; so is autoResume under shards outside a
+  launch that allows maxRetries restarts (the relaunch itself:
+  ``tests/test_torch_sharding_resume.py``).
 
 Each launch has a timeout of its own.
 """
@@ -231,10 +232,14 @@ def test_shards_other_than_the_world_size_raise(tmp_path):
     assert rc != 0 and "ValueError: shards=4 needs 4 processes" in text
 
 
-def test_auto_resume_under_shards_raises(tmp_path):
+def test_auto_resume_under_shards_raises(tmp_path, monkeypatch):
+    """Outside a torchrun launch that allows maxRetries restarts, a sharded
+    autoResume run is a ``ValueError`` naming the launch line, raised
+    before any checkpoint is written."""
+    monkeypatch.delenv("TORCHELASTIC_MAX_RESTARTS", raising=False)
     cfg = SimConfig(particle_count=64, total_iterations=1, shards=2,
                     save_images=False, auto_resume=True, checkpoint_every=1,
                     checkpoint_path=str(tmp_path / "ck"))
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(ValueError, match="--max-restarts 3 --nproc-per-node 2"):
         run_simulation(cfg, device="cpu", quiet=True)
     assert not os.path.exists(tmp_path / "ck")
