@@ -220,12 +220,18 @@ Phases, each of which exits non-zero on failure:
     child process runs ``make_sharded_step`` (with all_gather and
     all_min) and ``make_sharded_bh_step`` (with all_gather and
     reduce_scatter) on the default scene, bitwise against the
-    single-device steps; with two cards or more the default scene by a
-    torchrun CLI over min(4, cards) ranks against one card: bh for 50
-    steps, bitwise at every 10th; exact for 200 steps, merges equal at
-    every 20th and positions at tests/test_ring.py's gates at step 20 (the
-    ring's sums round differently, and close encounters amplify that);
-    on one card the line ``sharded_multicard: not run (1 card)``. Then
+    single-device steps; with two cards or more (``phase_multicard``) the
+    default scene by a torchrun CLI on one card and over 2 and min(4,
+    cards) ranks, each through graph windows and eagerly, ``Time taken``
+    and the device's ms a step of each: bh for 50 steps, bitwise to one
+    card at every 10th; exact for 200 steps, merges equal at every 20th
+    and positions at tests/test_ring.py's gates at step 20 (the ring's
+    sums round differently, and close encounters amplify that); sharded
+    graph runs bitwise the sharded eager ones; suite config 5 on one card
+    and sharded over each P, graph and eager; a rank raising between
+    replays, which must end the launch within 150 s, and under autoResume
+    its relaunch, bitwise the straight run; on one card the line
+    ``sharded_multicard: not run (1 card)``. Then
     the gradient through the sharded ring: ``make_loss`` over
     ``make_sharded_step`` under a one-rank NCCL group (torchrun) on the
     default scene at phase 10's settings (4 euler steps, 2 leapfrog
@@ -253,7 +259,16 @@ Phases, each of which exits non-zero on failure:
     summed onto their owners against one single-device B2 over all N;
     B2's device time on a 16,384 x 16,384 ring tile and rank 0's summed
     backward.
-    Each of phases 28-40 prints its seconds.
+41. the sharded graph windows on one card: a one-rank NCCL group in a
+    child process runs the CLI on the default scene (200 steps, a frame
+    every 10, a checkpoint every 20) and on the 2-D bh million (20 steps,
+    a checkpoint every 10) through ``_ShardedGraphWindows``, through
+    ``_ShardedWindows`` (``_eager``) and through the single-device graph
+    windows: every checkpoint bitwise, every frame byte for byte, B1, B3
+    and B5's launches equal, ``Time taken`` and capture seconds of each
+    (the communicator made before the runs); a step that reads the host
+    makes the sharded runner raise ``GraphCaptureError``.
+    Each of phases 28-41 prints its seconds.
 
 The line before the last is a JSON object describing each kernel (the
 wrapper call's CUDA-event time ``ms``, the kernel's own device time by
@@ -3401,59 +3416,225 @@ def phase_collectives_on_cuda():
     if cards < 2:
         print("sharded_multicard: not run (1 card)")
         return grads
-    ranks = min(4, cards)
-    grads = sharded_gradients(ranks, "cuda")
-    work = tempfile.mkdtemp(prefix="multicard_")
+    grads = sharded_gradients(min(4, cards), "cuda")
+    phase_multicard(cards)
+    return grads
 
-    def run(tag, launch, sets, steps, every):
+
+SHARDED_CLI_CHILD = r"""
+import os, sys
+from functools import partial
+sys.path.insert(0, sys.argv[1])
+from nbodyax_torch import cli, driver
+argv = sys.argv[2:]
+if "--eager" in argv:
+    argv.remove("--eager")
+    cli.run_simulation = partial(driver.run_simulation, _eager=True)
+if "--fault" in argv:
+    # on a launch's first attempt, rank 1 raises between two replays, from
+    # step 20 on
+    argv.remove("--fault")
+    advance = driver._ShardedGraphWindows.advance
+    first = os.environ.get("TORCHELASTIC_RESTART_COUNT", "0") == "0"
+
+    def failing(self, k, frames):
+        if first and os.environ.get("RANK") == "1" and self.state.step >= 20:
+            raise RuntimeError("injected fault between replays at step %d"
+                               % self.state.step)
+        return advance(self, k, frames)
+
+    driver._ShardedGraphWindows.advance = failing
+sys.exit(cli.main(argv))
+"""
+
+
+SUITE_CHILD = r"""
+import sys
+sys.path.insert(0, sys.argv[1])
+from nbodyax_torch import bench, bench_suite, driver
+argv = sys.argv[2:]
+if "--eager" in argv:
+    # the driver's eager runners in place of its graph runners
+    argv.remove("--eager")
+
+    def eager(step, state, cfg, window, group=None):
+        if group is not None:
+            return driver._ShardedWindows(step, state, cfg, 0, group)
+        return driver._EagerWindows(step, state, cfg, 0)
+
+    bench.window_runner = eager
+sys.exit(bench_suite.main(argv))
+"""
+
+
+def phase_multicard(cards, suite=True):
+    """39, with two cards or more: the default scene through the CLI on one
+    card and over P = 2 and min(4, cards) ranks on as many cards, each
+    through graph windows (sharded: ``_ShardedGraphWindows``) and eagerly
+    (``_eager``), ``Time taken`` of each: bh for 50 steps, bitwise to one
+    card at every 10th; exact for 200 steps, merges equal to one card's at
+    every 20th and positions at tests/test_ring.py's trajectory gates at
+    step 20 (the ring's sums round differently, and close encounters
+    amplify that); the sharded graph run bitwise the sharded eager one at
+    every checkpoint; beside ``Time taken``, each run's median log-line
+    ``wall_ms`` after the first (the device's time a step, by CUDA events
+    a window). Then (``suite``) suite config 5 (the 4M galaxy, bh and
+    exact) on one card and sharded over each P (``bench_suite`` under
+    torchrun), through graph windows and through the eager runners, and
+    ``phase_multicard_fault``."""
+    work = tempfile.mkdtemp(prefix="multicard_")
+    child = os.path.join(work, "child.py")
+    with open(child, "w") as f:
+        f.write(SHARDED_CLI_CHILD)
+    ranks_list = sorted({2, min(4, cards)})
+
+    def launch(ranks):
+        return [] if ranks == 1 else [
+            "-m", "torch.distributed.run", "--standalone",
+            "--nproc-per-node", str(ranks)]
+
+    def run(tag, ranks, sets, steps, every, eager):
         ck = os.path.join(work, tag)
-        cmd = [sys.executable, *launch, "-m", "nbodyax_torch.cli", "--steps",
+        cmd = [sys.executable, *launch(ranks), child, HERE, "--steps",
                str(steps), "--no-images", "--set", f"checkpointEvery={every}",
                "--set", "checkpointKeep=0", "--set", f"checkpointPath={ck}"]
-        for kv in sets:
+        for kv in sets + ([f"shards={ranks}"] if ranks > 1 else []):
             cmd += ["--set", kv]
-        r = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
-                           timeout=900)
+        r = subprocess.run(cmd + (["--eager"] if eager else []), cwd=HERE,
+                           capture_output=True, text=True, timeout=300)
         check(r.returncode == 0, f"{tag} run failed: {r.stderr[-3000:]}")
-        taken = re.findall(r"Time taken: ([0-9.]+)", r.stdout)
-        return ck, taken
+        walls = [json.loads(l)["wall_ms"] for l in r.stdout.splitlines()
+                 if l.startswith("{")]
+        return ck, (time_taken(r.stdout), float(np.median(walls[1:])))
 
-    sharded = ["-m", "torch.distributed.run", "--standalone",
-               "--nproc-per-node", str(ranks)]
+    def same_cks(a, b):
+        for f in sorted(os.listdir(b)):
+            x, y = np.load(os.path.join(a, f)), np.load(os.path.join(b, f))
+            if not all(np.array_equal(x[k], y[k]) for k in
+                       ("pos", "vel", "mass", "radius", "sim_time")):
+                return False
+        return sorted(os.listdir(a)) == sorted(os.listdir(b))
+
     for name, sets, steps, every in (("exact", [], 200, 20),
                                      ("bh", ["forceModel=bh"], 50, 10)):
-        one, t1 = run(f"{name}_one", [], sets, steps, every)
-        many, tp = run(f"{name}_sharded", sharded,
-                       sets + [f"shards={ranks}"], steps, every)
-        rows = []
-        for f in sorted(os.listdir(one)):
-            a, b = np.load(os.path.join(many, f)), np.load(os.path.join(one, f))
-            n = b["pos"].shape[0]
-            rows.append((int(f[5:14]),
-                         all(np.array_equal(a[k][:n], b[k]) for k in
-                             ("pos", "vel", "mass", "radius")),
-                         np.array_equal(a["mass"][:n] > 0, b["mass"] > 0),
-                         float(np.abs(a["pos"][:n] - b["pos"]).max()),
-                         bool(np.allclose(a["pos"][:n], b["pos"], rtol=1e-4,
-                                          atol=1e-3))))
-        print(f"sharded_multicard {name}: {ranks} ranks on {ranks} cards "
-              f"against one card, default scene, {steps} steps: Time taken "
-              f"{tp} against {t1} s; (step, bitwise, alive masks equal, "
-              f"largest position difference, within test_ring.py's gates) "
-              f"{rows}")
-        if name == "bh":
-            # the cell-range step sums one nonzero term a lane: bitwise
-            check(all(r[1] for r in rows), "sharded bh across cards differs "
-                                           "from one card")
-        else:
-            # the ring's hop-ordered sums round differently from one launch;
-            # the merges must agree at every checkpoint and the positions
-            # within test_ring.py's gates over its horizon (step 20), after
-            # which close encounters amplify the rounding
-            check(all(r[2] for r in rows) and rows[0][4],
-                  "the multi-card exact run's merges or its first 20 steps "
-                  "left the single-card run")
-    return grads
+        taken = {}
+        one, taken[1, "graph"] = run(f"{name}_one", 1, sets, steps, every,
+                                     False)
+        _, taken[1, "eager"] = run(f"{name}_one_eager", 1, sets, steps, every,
+                                   True)
+        for ranks in ranks_list:
+            many, taken[ranks, "graph"] = run(f"{name}_{ranks}", ranks, sets,
+                                              steps, every, False)
+            eager, taken[ranks, "eager"] = run(f"{name}_{ranks}_eager", ranks,
+                                               sets, steps, every, True)
+            rows = []
+            for f in sorted(os.listdir(one)):
+                a = np.load(os.path.join(many, f))
+                b = np.load(os.path.join(one, f))
+                n = b["pos"].shape[0]
+                rows.append((int(f[5:14]),
+                             all(np.array_equal(a[k][:n], b[k]) for k in
+                                 ("pos", "vel", "mass", "radius")),
+                             np.array_equal(a["mass"][:n] > 0, b["mass"] > 0),
+                             float(np.abs(a["pos"][:n] - b["pos"]).max()),
+                             bool(np.allclose(a["pos"][:n], b["pos"],
+                                              rtol=1e-4, atol=1e-3))))
+            graph_eager = same_cks(many, eager)
+            print(f"sharded_multicard {name}: {ranks} ranks on {ranks} cards "
+                  f"against one card, default scene, {steps} steps: (step, "
+                  f"bitwise, alive masks equal, largest position difference, "
+                  f"within test_ring.py's gates) {rows}; sharded graph "
+                  f"windows bitwise the sharded eager ones at every "
+                  f"checkpoint: {graph_eager}")
+            check(graph_eager, f"sharded {name} over {ranks} cards: graph "
+                               f"windows differ from eager windows")
+            if name == "bh":
+                # the cell-range step sums one nonzero term a lane: bitwise
+                check(all(r[1] for r in rows), "sharded bh across cards "
+                                               "differs from one card")
+            else:
+                # the ring's hop-ordered sums round differently from one
+                # launch; the merges must agree at every checkpoint and the
+                # positions within test_ring.py's gates over its horizon
+                # (step 20), after which close encounters amplify the
+                # rounding
+                check(all(r[2] for r in rows) and rows[0][4],
+                      "the multi-card exact run's merges or its first 20 "
+                      "steps left the single-card run")
+        print(f"sharded_multicard {name}, default scene, {steps} steps, "
+              f"(Time taken s, median wall ms a step), graph against eager: "
+              + "; ".join(f"{p} card(s) {taken[p, 'graph']} against "
+                          f"{taken[p, 'eager']}" for p in [1] + ranks_list))
+    suite_py = os.path.join(work, "suite.py")
+    with open(suite_py, "w") as f:
+        f.write(SUITE_CHILD)
+    for ranks, way in itertools.product([1] + ranks_list if suite else [],
+                                        ("graph", "eager")):
+        t0 = time.perf_counter()
+        rc, out, err = finish(subprocess.Popen(
+            [sys.executable, *launch(ranks), suite_py, HERE, "--configs",
+             "5"]
+            + (["--eager"] if way == "eager" else []), cwd=HERE,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), 600)
+        check(rc == 0, f"suite config 5 on {ranks} card(s), {way}, failed:"
+                       f"\n{out[-2000:]}{err[-3000:]}")
+        line = json.loads(out.strip().splitlines()[-1])
+        print(f"sharded_multicard suite config 5 ({ranks} card(s), {way} "
+              f"windows, {time.perf_counter() - t0:.1f} s in its launch): "
+              f"{json.dumps(line)}")
+        check(line["finite"] and line.get("shards", 1) == ranks
+              and line["steps_per_sec"] > 0 and line["exact_steps_per_sec"] > 0,
+              f"suite config 5 on {ranks} card(s), {way}: {line}")
+    phase_multicard_fault(max(ranks_list), work, child)
+
+
+def phase_multicard_fault(ranks, work, child):
+    """39, with two cards or more: a sharded graph run over ``ranks`` cards
+    (the default scene, 60 steps) whose rank 1 raises between two replays
+    at step 20. Without autoResume the launch must end, non-zero, within
+    150 s: NCCL's watchdog does not track a replay, so only the failing
+    rank's exit (``close_group`` aborts its communicator) and torchrun's
+    teardown of its peers end it. With autoResume, a checkpoint every 20
+    steps and ``--max-restarts 1``, torchrun must relaunch every rank,
+    and the relaunched run must end on the straight run's state, bitwise.
+    """
+    base = [child, HERE, "--steps", "60", "--no-images", "--set",
+            f"shards={ranks}"]
+    t0 = time.perf_counter()
+    rc, out, err = finish(torchrun(ranks, base + [
+        "--fault", "--set", f"checkpointPath={os.path.join(work, 'fault')}"]),
+        150)
+    wall = time.perf_counter() - t0
+    ended = wall < 150 and rc not in (0, None)
+    seen = "injected fault between replays" in out + err
+    print(f"sharded_multicard fault: rank 1 of {ranks} raising between "
+          f"replays at step 20 ended the launch: {ended} (exit code {rc}, "
+          f"{wall:.1f} s; the fault in its output: {seen})")
+    check(ended and seen, f"a rank raising between replays did not end the "
+                          f"launch (exit code {rc} after {wall:.1f} s)")
+    resume = ["--set", "autoResume=1", "--set", "maxRetries=1", "--set",
+              "checkpointEvery=20", "--set", "checkpointKeep=0"]
+    final, lines = [], []
+    for tag in ("straight", "relaunched"):
+        ck = os.path.join(work, tag)
+        t0 = time.perf_counter()
+        rc, out, err = finish(torchrun(
+            ranks, base + resume + ["--set", f"checkpointPath={ck}"]
+            + (["--fault"] if tag == "relaunched" else []), restarts=1), 300)
+        check(rc == 0, f"sharded autoResume {tag} run over {ranks} cards "
+                       f"failed (exit code {rc}):\n{out[-2000:]}{err[-3000:]}")
+        final.append(np.load(os.path.join(ck, "step_000000060.npz")))
+        lines.append(f"{tag} {time.perf_counter() - t0:.1f} s, Time taken "
+                     f"{re.findall(r'Time taken: ([0-9.]+)', out)}, "
+                     f"{[l for l in out.splitlines() if l.startswith('Relaunch')]}")
+    same = all(np.array_equal(final[0][k], final[1][k])
+               for k in ("pos", "vel", "mass", "radius", "sim_time"))
+    print(f"sharded_multicard autoResume over {ranks} cards (a fault "
+          f"between replays at step 20, torchrun --max-restarts 1): "
+          f"{'; '.join(lines)}; final state bitwise the straight run's: "
+          f"{same}")
+    check(same and "Relaunch 1 of 1" in lines[1],
+          "the relaunched sharded graph run left the straight run")
 
 
 PHASE39_GRAD_CHILD = r"""
@@ -3871,6 +4052,184 @@ def phase_ring_backward(dev, arrays, mode, ranks, label, timing=False):
                     "library_ms": None, "bound": bound}
 
 
+PHASE41_CHILD = r"""
+import contextlib, io, json, os, sys, tempfile, time
+import numpy as np, torch
+import torch.distributed as dist
+sys.path.insert(0, sys.argv[1])
+from nbodyax_torch import cli, driver
+from nbodyax_torch.config import SimConfig
+from nbodyax_torch.physics import _build
+from nbodyax_torch.sharding import make_group, pad_to_shards
+from nbodyax_torch.scenes import init_scene
+_build.load_library()
+group = make_group(1, "cuda")
+# NCCL makes its communicator at the first collective: here, so that no
+# way's run pays for it
+t0 = time.perf_counter()
+group.all_gather(torch.zeros(1, device=group.device))
+torch.cuda.synchronize()
+nccl_init = time.perf_counter() - t0
+specs = json.loads(sys.argv[2])
+WAYS = {"sharded graph": dict(_group=group),
+        "sharded eager": dict(_group=group, _eager=True),
+        "one card graph": {}}
+FIELDS = ("pos", "vel", "mass", "radius", "sim_time", "step")
+
+
+def cli_run(way, spec, work):
+    # the CLI in work, its run_simulation given the way's switches; the
+    # group lives across runs, so cli.main's teardown of it is held off
+    os.makedirs(work)
+    with open(os.path.join(work, "nbodyConfig.txt"), "w") as f:
+        f.write(spec["config"])
+    results, buf, cwd = [], io.StringIO(), os.getcwd()
+
+    def run(*a, **k):
+        results.append(driver.run_simulation(*a, **WAYS[way], **k))
+        return results[-1]
+
+    saved = cli.run_simulation, dist.destroy_process_group
+    cli.run_simulation, dist.destroy_process_group = run, lambda *a: None
+    before = driver._read_counters()
+    os.chdir(work)
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(spec["argv"])
+    finally:
+        os.chdir(cwd)
+        cli.run_simulation, dist.destroy_process_group = saved
+    after = driver._read_counters()
+    out = buf.getvalue()
+    taken = [l for l in out.splitlines() if l.startswith("Time taken: ")]
+    res = results[-1]
+    return {"rc": rc, "time_taken": float(taken[0].split()[-1]),
+            "capture_s": res.seconds["capture"], "windows": res.windows,
+            "launches": dict(zip(("B1", "B2", "B3", "B4", "B5"),
+                                 (a - b for a, b in zip(after, before))))}
+
+
+def files(d):
+    return sorted(os.listdir(d)) if os.path.isdir(d) else []
+
+
+out = {}
+for name, spec in specs.items():
+    base = tempfile.mkdtemp(prefix=f"phase41_{name}_")
+    runs = {w: cli_run(w, spec, os.path.join(base, w.replace(" ", "_")))
+            for w in WAYS}
+    dirs = {w: os.path.join(base, w.replace(" ", "_")) for w in WAYS}
+    ref = "one card graph"
+    cks = files(os.path.join(dirs[ref], "checkpoints"))
+    frames = files(os.path.join(dirs[ref], "frames"))
+    for w in WAYS:
+        ck_dir, fr_dir = (os.path.join(dirs[w], d) for d in
+                          ("checkpoints", "frames"))
+        same_ck = files(ck_dir) == cks and all(
+            np.array_equal(np.load(os.path.join(ck_dir, f))[k],
+                           np.load(os.path.join(dirs[ref], "checkpoints",
+                                                f))[k])
+            for f in cks for k in FIELDS)
+        same_fr = files(fr_dir) == frames and all(
+            open(os.path.join(fr_dir, f), "rb").read()
+            == open(os.path.join(dirs[ref], "frames", f), "rb").read()
+            for f in frames)
+        runs[w].update(checkpoints_equal=same_ck, frames_equal=same_fr)
+    out[name] = {"checkpoints": len(cks), "frames": len(frames),
+                 "runs": runs}
+
+# a step that reads the host: the sharded runner's capture raises
+cfg = SimConfig(particle_count=1024, save_images=False, shards=1)
+full = pad_to_shards(init_scene(cfg, device=group.device), 1)
+inner = driver.build_step(cfg, group.device, group)
+
+
+def reading(s):
+    float(s.sim_time)
+    return inner(s)
+
+
+r = driver._ShardedGraphWindows(reading, full, cfg, 0, 1, None, group)
+try:
+    r.advance(1, False)
+    raised = "no error"
+except driver.GraphCaptureError as e:
+    raised = "GraphCaptureError: " + str(e).splitlines()[0][:160]
+except Exception as e:
+    raised = type(e).__name__ + ": " + str(e)[:160]
+r.close()
+out["host_read"] = raised
+out["backend"] = dist.get_backend()
+out["nccl_init_s"] = nccl_init
+dist.destroy_process_group()
+print(json.dumps(out))
+"""
+
+
+def phase_sharded_graph_windows():
+    """41. The sharded graph windows on one card: a one-rank NCCL group in
+    a child process runs the CLI on the default scene (exact, 200 steps, a
+    frame every 10 and a checkpoint every 20) and on the 2-D bh million
+    (20 steps, a checkpoint every 10) three ways: through
+    ``_ShardedGraphWindows`` (each window one replay of a graph that holds
+    the NCCL gathers), through ``_ShardedWindows`` (``_eager``) and
+    through the single-device graph windows. Every checkpoint bitwise
+    equal, every frame byte for byte, B1, B3 and B5's launches equal;
+    ``Time taken`` and the capture seconds of each. Then a step that reads
+    the host must make the sharded runner raise ``GraphCaptureError``.
+    One rank has no ring shift: NCCL's p2p inside a graph is exercised
+    only across cards (phase 39's multi-card part)."""
+    specs = {
+        "exact": {"config": "", "argv": [
+            "--steps", str(STEPS), "--set", "checkpointEvery=20", "--set",
+            "checkpointKeep=0", "--set", "imagePath=frames"]},
+        "bh_million": {"config": config_text(million_config(
+            checkpoint_every=10, checkpoint_keep=0)), "argv": []}}
+    env = dict(os.environ, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+               LOCAL_WORLD_SIZE="1", MASTER_ADDR="localhost",
+               MASTER_PORT=str(free_port()))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", PHASE41_CHILD, HERE,
+                        json.dumps(specs)], env=env, capture_output=True,
+                       text=True, timeout=900)
+    check(r.returncode == 0, f"phase 41's one-rank NCCL child failed:\n"
+                             f"{r.stdout[-2000:]}{r.stderr[-3000:]}")
+    res = json.loads(r.stdout.strip().splitlines()[-1])
+    print(f"sharded graph windows, one-rank {res['backend']} group "
+          f"({time.perf_counter() - t0:.1f} s in its process; the first "
+          f"collective, which makes NCCL's communicator, "
+          f"{res['nccl_init_s']:.3f} s before the runs):")
+    for name in specs:
+        row = res[name]
+        for way, run in row["runs"].items():
+            print(f"  {name} ({row['checkpoints']} checkpoints, "
+                  f"{row['frames']} frames), {way}: Time taken "
+                  f"{run['time_taken']} s, capture {run['capture_s']:.4f} s, "
+                  f"{run['windows']} windows, launches {run['launches']}, "
+                  f"checkpoints bitwise {run['checkpoints_equal']}, frames "
+                  f"byte for byte {run['frames_equal']}")
+        runs = list(row["runs"].values())
+        check(all(x["rc"] == 0 and x["checkpoints_equal"]
+                  and x["frames_equal"] for x in runs),
+              f"phase 41 {name}: the three runs differ: {row}")
+        check(row["checkpoints"] > 0 and (name != "exact"
+                                          or row["frames"] == STEPS // 10),
+              f"phase 41 {name}: {row['checkpoints']} checkpoints, "
+              f"{row['frames']} frames")
+        kinds = ("B1",) if name == "exact" else ("B3", "B5")
+        check(all(x["launches"] == runs[0]["launches"] for x in runs)
+              and all(runs[0]["launches"][k] > 0 for k in kinds),
+              f"phase 41 {name}: launches differ: "
+              f"{[x['launches'] for x in runs]}")
+        check(runs[0]["capture_s"] > 0 and runs[1]["capture_s"] == 0
+              and runs[2]["capture_s"] > 0,
+              f"phase 41 {name}: capture seconds "
+              f"{[x['capture_s'] for x in runs]} (graph, eager, graph)")
+    print(f"  a step that reads the host, sharded runner: {res['host_read']}")
+    check(res["host_read"].startswith("GraphCaptureError"),
+          f"a host read in a sharded window: {res['host_read']}")
+
+
 def kernel_name(mangled):
     """``name<template args>`` of a kernel in an anonymous namespace, from
     its mangled name (the mangled name itself otherwise)."""
@@ -4039,7 +4398,9 @@ def main() -> int:
                 ring=phase_ring_backward(
                     dev, exact_scene(dev, particle_count=131072)[0][:4],
                     "reference", 8, "suite config 3 N=131072",
-                    timing=True)))):
+                    timing=True))),
+            ("41 sharded graph windows, one-rank NCCL",
+             phase_sharded_graph_windows)):
         t0 = time.perf_counter()
         phase()
         print(f"phase {name}: {time.perf_counter() - t0:.1f} s")

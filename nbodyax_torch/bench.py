@@ -60,11 +60,21 @@ def launches_since(before: list) -> dict:
     return {k: a - b for k, a, b in zip(KERNELS, _read_counters(), before)}
 
 
-def window_runner(step, state, cfg, window: int):
+def window_runner(step, state, cfg, window: int, group=None):
     """The driver's runner for windows of ``window`` steps, without frames:
-    CUDA-graph replays on a card, the eager loop on the CPU."""
-    from nbodyax_torch.driver import _EagerWindows, _GraphWindows
-    if state.pos.device.type == "cuda":
+    CUDA-graph replays on a card, the eager loop on the CPU. With a shard
+    ``group``, ``step`` is the sharded step and ``state`` the whole (padded)
+    state: the sharded graph runner on cards, the sharded eager one on the
+    CPU."""
+    from nbodyax_torch.driver import (_EagerWindows, _GraphWindows,
+                                      _ShardedGraphWindows, _ShardedWindows)
+    cuda = state.pos.device.type == "cuda"
+    if group is not None:
+        if cuda:
+            return _ShardedGraphWindows(step, state, cfg, 0, window, None,
+                                        group)
+        return _ShardedWindows(step, state, cfg, 0, group)
+    if cuda:
         return _GraphWindows(step, state, cfg, 0, window, None)
     return _EagerWindows(step, state, cfg, 0)
 
@@ -89,18 +99,18 @@ def close_runner(runner) -> None:
         runner.close()
 
 
-def time_steps(step, state, cfg, *, steps: int, chunk: int):
+def time_steps(step, state, cfg, *, steps: int, chunk: int, group=None):
     """``bench/suite.py``'s ``_time_steps`` on the driver's runner: one warm
     window of ``chunk`` steps (a graph's capture included), then windows of
-    ``chunk`` until ``steps`` are done. Returns the final state (a copy),
-    the seconds a step of each timed window, and the graph capture seconds
-    (0 on the CPU)."""
+    ``chunk`` until ``steps`` are done. Returns the final state (a copy; the
+    whole state under a shard ``group``), the seconds a step of each timed
+    window, and the graph capture seconds (0 on the CPU)."""
     from nbodyax_torch.driver import _copy_state
-    runner = window_runner(step, state, cfg, chunk)
+    runner = window_runner(step, state, cfg, chunk, group)
     try:
         time_windows(runner, chunk, 1)
         seconds = time_windows(runner, chunk, -(-steps // chunk))
-        final = _copy_state(runner.state)
+        final = _copy_state(runner.state if group is None else runner.full)
         capture = getattr(runner, "capture_seconds", 0.0)
     finally:
         close_runner(runner)

@@ -109,13 +109,14 @@ def main(argv=None) -> int:
     elif args.resume:
         cfg.resume_from = args.resume
 
+    failed = True
     try:
         run_simulation(cfg, device=device, quiet=args.quiet,
                        profile_dir=args.profile, debug_nans=args.debug_nans)
+        failed = False
     finally:
-        import torch.distributed as dist
-        if dist.is_initialized():
-            dist.destroy_process_group()
+        from nbodyax_torch.sharding import close_group
+        close_group(failed)
     return 0
 
 

@@ -8,7 +8,8 @@ energy points, the end of the run, and from a frame-misaligned start the
 next frame boundary) cut the run into windows (``_Schedule``, nbodyax's
 ``next_window``), and each window runs as one unit:
 
-- **CUDA** (``_GraphWindows``), the exact path and ``forceModel=bh``: a
+- **CUDA** (``_GraphWindows``; under shards ``_ShardedGraphWindows``),
+  the exact path and ``forceModel=bh``: a
   window is one replay of a captured ``torch.cuda.CUDAGraph``. The
   recurring window size (the stride) has its own graph, which also renders
   the window's frames into a static uint8 buffer and computes the
@@ -67,19 +68,24 @@ process a shard, under ``torch.distributed.run`` (``sharding.make_group``:
 the world size must be the shard count). Every rank builds the same whole
 state (scene or checkpoint), pads it to a multiple of the shard count and
 keeps its rows; the step is the exact ring or the cell-range bh step
-(``build_step``). Windows run eagerly (``_ShardedWindows``): capturing
-NCCL collectives into graphs is not ported. Every decision the ranks must
-share (the window schedule, log and probe points, bhAdapt's knobs,
-compaction, ``debug_nans``) is taken on the whole state, which every rank
-gathers at each window's end, so all ranks take the same collectives in
-the same order. Rank 0 alone prints, logs, profiles and writes frames and
-checkpoints. autoResume cannot retry in the process: a failed rank breaks
-the process group. So a sharded autoResume run is launched with torchrun's
-``--max-restarts`` of at least ``maxRetries`` (else ``ValueError``), a
-failure is raised, torchrun relaunches every rank, and each relaunched
-rank resumes from the latest checkpoint (``_relaunch_resume``), as
-``--resume auto`` would; the starting state is checkpointed as on one
-card. What one card does not retry (a failure that is no
+(``build_step``). On cards a window is one replay of a CUDA graph that
+holds the NCCL collectives (``_ShardedGraphWindows``, nbodyax's one
+dispatch a window); on the CPU (gloo) and under ``_eager`` it runs step by
+step (``_ShardedWindows``). Every decision the ranks must share (the
+window schedule, log and probe points, bhAdapt's knobs, compaction,
+``debug_nans``, and with them each capture) is taken on the whole state,
+which every rank gathers at each window's end, so all ranks take the same
+collectives in the same order. The group's timeout does not cover a
+replay (NCCL's watchdog does not track one): a rank that fails aborts its
+NCCL group on its way out (``sharding.close_group``, from the CLI) and
+exits, and torchrun ends its peers. Rank 0 alone prints, logs, profiles
+and writes frames and checkpoints. autoResume cannot retry in the
+process: a failed rank breaks the process group. So a sharded autoResume
+run is launched with torchrun's ``--max-restarts`` of at least
+``maxRetries`` (else ``ValueError``), a failure is raised, torchrun
+relaunches every rank, and each relaunched rank resumes from the latest
+checkpoint (``_relaunch_resume``), as ``--resume auto`` would; the
+starting state is checkpointed as on one card. What one card does not retry (a failure that is no
 ``RuntimeError``, or one of ``_NOT_RETRIED``) is not retried here either:
 the failing rank leaves a mark beside the checkpoints, and the relaunched
 ranks raise ``RelaunchRefused`` before they run. On several hosts
@@ -227,9 +233,9 @@ def build_step(cfg: SimConfig, device, group=None):
     accumulator engine its backend and force model select. With
     ``shards > 1`` it is the sharded step on this rank's rows (the exact
     ring, or the cell-range bh step) of ``group`` (``make_group``'s by
-    default)."""
+    default); so it is with a ``group`` of one rank."""
     p = PhysicsParams.from_config(cfg)
-    if cfg.shards > 1:
+    if cfg.shards > 1 or group is not None:
         from nbodyax_torch.sharding import (make_group, make_sharded_bh_step,
                                             make_sharded_step)
         group = group or make_group(cfg.shards, device)
@@ -466,6 +472,12 @@ class _EagerWindows:
         return conservation_vec(self.state), out
 
 
+def _gather(group, s: SimState) -> SimState:
+    """The whole state of this rank's rows ``s``, by eager collectives."""
+    return SimState(*(group.all_gather(t) for t in s[:4]), s.step,
+                    s.sim_time)
+
+
 class _ShardedWindows(_EagerWindows):
     """Eager windows on this rank's rows of a sharded state (``shards >
     1``). ``full`` is the whole state, gathered at the end of each window
@@ -481,8 +493,7 @@ class _ShardedWindows(_EagerWindows):
         self.group, self.full = group, full
 
     def gather(self, s: SimState) -> SimState:
-        return SimState(*(self.group.all_gather(t) for t in s[:4]), s.step,
-                        s.sim_time)
+        return _gather(self.group, s)
 
     def advance(self, k: int, frames: bool):
         out = []
@@ -546,45 +557,70 @@ class _GraphWindows:
     def state(self) -> SimState:
         return self.buf
 
+    @property
+    def renders(self) -> bool:
+        """Whether this runner renders frames (under shards, rank 0)."""
+        return True
+
+    def gather(self, s: SimState) -> SimState:
+        """The whole state of ``s``, by eager calls (a warm-up's)."""
+        return s
+
+    def _whole_into(self, s: SimState) -> SimState:
+        """The whole state of ``s`` as a window's graph holds it."""
+        return s
+
+    def body(self, k: int, frames: bool, vec: torch.Tensor,
+             fbuf: Optional[torch.Tensor]) -> None:
+        """What a k-step window's graph holds: k steps from ``buf``, every
+        k_img-th rendered into ``fbuf`` (``frames`` and a renderer), the
+        conservation vector into ``vec`` and the final state copied into
+        ``buf``."""
+        s = self.buf
+        for j in range(k):
+            s = self.step(s)
+            if frames and j % self.k_img == 0:
+                whole = self._whole_into(s)
+                if fbuf is not None:
+                    fbuf[j // self.k_img].copy_(render_state(whole, self.cfg))
+        vec.copy_(conservation_vec(self._whole_into(s)))
+        for dst, src in zip(self.buf[:4], s[:4]):
+            dst.copy_(src)
+        self.buf.sim_time.copy_(s.sim_time)
+
     def _capture(self, k: int, frames: bool):
-        """Capture k steps (rendering every k_img-th into a static frame
-        buffer when ``frames``), the conservation vector into a static
-        output, and the copy of the final state into ``buf``."""
+        """Capture ``body``: k steps, their frames, the conservation vector
+        into a static output and the copy of the final state into
+        ``buf``."""
         if self.writer is not None:
             self.writer.drain()   # its thread copies frames off the card
         counts = _read_counters()
         b, cfg = self.buf, self.cfg
         # warm-up on a copy, on a side stream: the kernel library's first
         # load, the cached launch shapes and constants and the allocator's
-        # blocks come from here, never from inside the capture; every IF
-        # body runs, whatever its predicate
+        # blocks (and under shards NCCL's communicator and connections) come
+        # from here, never from inside the capture; every IF body runs,
+        # whatever its predicate
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side), graph_if.warm():
-            tmp = self.step(_copy_state(b))
+            tmp = self.gather(self.step(_copy_state(b)))
             vec_probe = conservation_vec(tmp)
-            if frames:
+            if frames and self.renders:
                 render_state(tmp, cfg)
         torch.cuda.current_stream().wait_stream(side)
         vec = torch.empty_like(vec_probe)
         fbuf = (torch.empty((-(-k // self.k_img), cfg.img_height,
                              cfg.img_width), dtype=torch.uint8,
-                            device=b.pos.device) if frames else None)
+                            device=b.pos.device)
+                if frames and self.renders else None)
         graph = torch.cuda.CUDAGraph()
         before = _read_counters()
         bodies = None
         try:
-            with graph_if.bodies() as bodies, torch.cuda.graph(
-                    graph, capture_error_mode="thread_local"):
-                s = b
-                for j in range(k):
-                    s = self.step(s)
-                    if frames and j % self.k_img == 0:
-                        fbuf[j // self.k_img].copy_(render_state(s, cfg))
-                vec.copy_(conservation_vec(s))
-                for dst, src in zip(b[:4], s[:4]):
-                    dst.copy_(src)
-                b.sim_time.copy_(s.sim_time)
+            with torch.no_grad(), graph_if.bodies() as bodies, \
+                    torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                self.body(k, frames, vec, fbuf)
                 self.nodes[k, frames] = (graph_if.capture_nodes(),
                                          bodies.ifs, bodies.nodes)
         except RuntimeError as e:
@@ -619,7 +655,7 @@ class _GraphWindows:
         if k == self.stride and self.stride_graph:
             frames = frames and i0 % self.k_img == 0
             vec, fbuf = self._replay(k, frames)
-            if frames:
+            if fbuf is not None:
                 # the next replay overwrites fbuf: copy it out now, into
                 # pinned memory the writer reads once the event has passed
                 host = torch.empty(fbuf.shape, dtype=torch.uint8,
@@ -632,17 +668,79 @@ class _GraphWindows:
         else:
             for j in range(k):
                 vec, _ = self._replay(1, False)
-                if frames and (i0 + j) % self.k_img == 0:
-                    out.append((i0 + j, render_state(self.buf, self.cfg),
-                                None))
+                if frames and (i0 + j) % self.k_img == 0 and self.renders:
+                    out.append((i0 + j, render_state(self.whole_state,
+                                                     self.cfg), None))
         self.buf = self.buf._replace(step=i0 + k)
+        return vec, out
+
+    @property
+    def whole_state(self) -> SimState:
+        """The whole state after the last replay."""
+        return self.buf
+
+
+class _ShardedGraphWindows(_GraphWindows):
+    """Graph windows on this rank's rows of a sharded state (``shards > 1``
+    on cards): nbodyax's one compiled dispatch a window
+    (nbodyax/driver.py:359-420). A window's graph holds its k sharded
+    steps with their NCCL collectives (the ring's shifts, or the bh step's
+    gathers and reduce_scatter), the whole state gathered into the static
+    ``full`` buffers on each frame step and rendered into the static frame
+    buffer (rank 0 alone renders), the window-end gather into ``full``
+    and ``conservation_vec(full)``. After each replay ``full`` is what
+    ``_ShardedWindows``'s gather gives, and the probes, checkpoints,
+    compaction and ``debug_nans`` read it as they do there. The graphs are
+    ``_GraphWindows``'s: the stride's with and without frames on the exact
+    path, the one-step graph otherwise, which renders its frames from
+    ``full`` between replays. Every rank captures and replays the same
+    graphs in the same order, so they hold the same collectives in the
+    same order: the schedule, adapts and compactions are decided on the
+    gathered state, and only the rendering differs by rank. No collective
+    runs inside a bh IF body. The warm-up before each capture runs the
+    step and a gather eagerly on every rank."""
+
+    def __init__(self, step, full: SimState, cfg: SimConfig, k_img: int,
+                 stride: int, writer: Optional[FrameWriter], group):
+        from nbodyax_torch.sharding import shard_state
+        super().__init__(step, shard_state(full, group), cfg, k_img, stride,
+                         writer)
+        self.group = group
+        self.full = SimState(
+            *(t.clone(memory_format=torch.contiguous_format)
+              for t in full[:4]), full.step, full.sim_time.clone())
+
+    def close(self) -> None:
+        super().close()
+        self.full = None
+
+    @property
+    def renders(self) -> bool:
+        return self.group.rank == 0
+
+    @property
+    def whole_state(self) -> SimState:
+        return self.full
+
+    def gather(self, s: SimState) -> SimState:
+        return _gather(self.group, s)
+
+    def _whole_into(self, s: SimState) -> SimState:
+        for dst, src in zip(self.full[:4], s[:4]):
+            self.group.all_gather_into(dst, src)
+        self.full.sim_time.copy_(s.sim_time)
+        return self.full
+
+    def advance(self, k: int, frames: bool):
+        vec, out = super().advance(k, frames)
+        self.full = self.full._replace(step=self.buf.step)
         return vec, out
 
 
 def _runner_class(dev: torch.device, eager: bool):
     """Graph windows on a card, for the exact path and ``forceModel=bh``
-    alike; the eager loop on the CPU and under the private ``_eager``
-    switch."""
+    alike, sharded or not; the eager loop on the CPU and under the private
+    ``_eager`` switch."""
     return (_GraphWindows if dev.type == "cuda" and not eager
             else _EagerWindows)
 
@@ -651,7 +749,7 @@ def run_simulation(cfg: SimConfig, *, device="cuda", quiet: bool = False,
                    state: Optional[SimState] = None,
                    profile_dir: Optional[str] = None,
                    debug_nans: bool = False,
-                   _eager: bool = False) -> RunResult:
+                   _eager: bool = False, _group=None) -> RunResult:
     """Run ``cfg`` to ``totalIterations`` on ``device``, from the config's
     scene, from ``resumeFrom``'s checkpoint or from ``state`` (its ``step``
     is where the run starts). ``profile_dir``: a ``torch.profiler`` trace of
@@ -661,7 +759,10 @@ def run_simulation(cfg: SimConfig, *, device="cuda", quiet: bool = False,
     at a time from a copy of its start state and raise
     ``FloatingPointError`` naming the first step and field. The windows are
     the same with and without it. ``_eager`` runs the windows eagerly on a
-    card too, for A/B checks against the graphs.
+    card too, for A/B checks against the graphs. ``_group`` runs the
+    sharded path on that ``ShardGroup`` whatever ``shards`` says: with a
+    one-rank NCCL group, the sharded runners on one card, for A/B checks
+    against the single-device ones.
 
     With ``autoResume`` and ``checkpointEvery`` both set, a failed run
     reloads the latest checkpoint and runs again, up to ``maxRetries``
@@ -696,7 +797,8 @@ def run_simulation(cfg: SimConfig, *, device="cuda", quiet: bool = False,
         try:
             return _run_simulation_once(cfg, dev, quiet=quiet, state=state,
                                         profile_dir=profile_dir,
-                                        debug_nans=debug_nans, eager=_eager)
+                                        debug_nans=debug_nans, eager=_eager,
+                                        group=_group)
         except Exception as e:
             retried = (isinstance(e, RuntimeError)
                        and not isinstance(e, _NOT_RETRIED))
@@ -773,7 +875,7 @@ def _mark_not_retried(cfg: SimConfig, e: BaseException) -> None:
 def _run_simulation_once(cfg: SimConfig, dev: torch.device, *, quiet: bool,
                          state: Optional[SimState],
                          profile_dir: Optional[str], debug_nans: bool,
-                         eager: bool) -> RunResult:
+                         eager: bool, group=None) -> RunResult:
     t_start = time.perf_counter()
     # the bh knobs the user left auto, before any adoption or resolution:
     # compaction may re-pick these and only these
@@ -783,10 +885,9 @@ def _run_simulation_once(cfg: SimConfig, dev: torch.device, *, quiet: bool,
                   "bh_comp_cap": cfg.bh_comp_cap == 0}
     seconds = dict.fromkeys(("scene", "capture", "windows", "frames",
                              "checkpoints", "compaction"), 0.0)
-    group = None
-    if cfg.shards > 1:
+    if cfg.shards > 1 or group is not None:
         from nbodyax_torch.sharding import make_group, pad_to_shards
-        group = make_group(cfg.shards, dev)
+        group = group or make_group(cfg.shards, dev)
         dev = group.device
     # rank 0 alone prints, logs, profiles and writes frames and checkpoints
     root = group is None or group.rank == 0
@@ -818,7 +919,12 @@ def _run_simulation_once(cfg: SimConfig, dev: torch.device, *, quiet: bool,
     runner_class = _runner_class(dev, eager)
 
     def new_runner(c: SimConfig, s: SimState):
+        """The runner of the step of ``c`` from the whole state ``s``."""
         if group is not None:
+            if runner_class is _GraphWindows:
+                return _ShardedGraphWindows(build_step(c, dev, group), s, c,
+                                            k_img, sched.stride, writer,
+                                            group)
             return _ShardedWindows(build_step(c, dev, group), s, c, k_img,
                                    group)
         if runner_class is _GraphWindows:
@@ -839,7 +945,7 @@ def _run_simulation_once(cfg: SimConfig, dev: torch.device, *, quiet: bool,
         a new runner, captured at its first window."""
         nonlocal runner
         if isinstance(runner, _GraphWindows):
-            old, runner = runner, new_runner(c, runner.state)
+            old, runner = runner, new_runner(c, whole())
             drop_runner(old)
         else:
             runner.step = build_step(c, dev, group)
@@ -977,6 +1083,14 @@ def _run_simulation_once(cfg: SimConfig, dev: torch.device, *, quiet: bool,
                 state = new_state
                 meter.capacity = state.capacity
             seconds["compaction"] += time.perf_counter() - t0
+    except BaseException:
+        # a failed run's graphs go at once: NCCL tears its communicator
+        # down (``sharding.close_group``) only once every graph holding its
+        # collectives is destroyed, and the traceback keeps this frame, so
+        # the runner, alive
+        if isinstance(runner, _GraphWindows):
+            runner.close()
+        raise
     finally:
         if prof is not None:
             prof.stop()

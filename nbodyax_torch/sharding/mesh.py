@@ -28,6 +28,20 @@ derivative); its forward makes the calls it made before it had one. Under
 torchrun each launch attempt's group keys its store entries by the attempt
 (``TORCHELASTIC_RESTART_COUNT``), so a relaunch never reads the addresses
 of the attempt before it.
+
+Inside a CUDA-graph capture (the driver's sharded graph windows) NCCL
+records each collective into the graph, and every replay runs it again.
+The collectives here are safe there: all_gather, reduce_scatter and the
+minimum are synchronous calls, so the current stream waits for NCCL's
+before each returns; the ring shift's works are waited before its tiles
+are read; outputs are allocated on the capturing stream's side, from the
+graph's pool; and ``all_gather_into`` writes into a buffer made before the
+capture (a graph's static output). A capture must follow an eager run of
+the same collectives on every rank: NCCL makes its communicator and a
+pair's connection at their first use, which a capture cannot hold.
+``GROUP_TIMEOUT`` covers eager collectives only, since NCCL's watchdog
+does not track a replay's work; so a rank that fails must not wait for its
+peers on its way out (``close_group``).
 """
 
 from __future__ import annotations
@@ -43,7 +57,7 @@ import torch.distributed as dist
 from nbodyax_torch.state import SimState
 
 __all__ = ["ShardGroup", "maybe_init_distributed", "make_group",
-           "pad_to_shards", "shard_state", "GROUP_TIMEOUT"]
+           "pad_to_shards", "shard_state", "close_group", "GROUP_TIMEOUT"]
 
 # how long a collective waits for a peer before the run fails
 GROUP_TIMEOUT = datetime.timedelta(seconds=600)
@@ -185,6 +199,11 @@ class ShardGroup:
         """The elementwise minimum of the ranks' ``x``."""
         return _AllMinFn.apply(x, self)
 
+    def all_gather_into(self, out: torch.Tensor, x: torch.Tensor) -> None:
+        """``all_gather`` into ``out`` (size x ``x``'s rows), which may be a
+        graph's static buffer; not differentiable."""
+        _all_gather(out, x.contiguous(), group=self.group)
+
     def _all_gather(self, x: torch.Tensor) -> torch.Tensor:
         x = x.contiguous()
         out = x.new_empty((self.size * x.shape[0],) + tuple(x.shape[1:]))
@@ -237,6 +256,23 @@ def maybe_init_distributed(device) -> Optional[ShardGroup]:
     elif dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return ShardGroup(dist.get_rank(), dist.get_world_size(), dev)
+
+
+def close_group(failed: bool) -> None:
+    """Leave the process group, if one was joined. After a failure an NCCL
+    group is aborted rather than destroyed, so the failing rank waits for
+    no peer (a peer may be stuck in a graph replay that waits for this
+    rank); it exits with its error, and torchrun ends or relaunches its
+    peers. Either way NCCL tears a communicator down only once every CUDA
+    graph that captured its collectives is destroyed: a failed run closes
+    its graph runner before this (``driver._run_simulation_once``)."""
+    if not dist.is_initialized():
+        return
+    if failed and dist.get_backend() == "nccl":
+        from torch.distributed.distributed_c10d import _abort_process_group
+        _abort_process_group()
+    else:
+        dist.destroy_process_group()
 
 
 def make_group(n_shards: int, device) -> ShardGroup:
