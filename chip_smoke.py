@@ -63,8 +63,16 @@ Phases, each of which exits non-zero on failure:
    ``energyEvery=50`` through graph windows, the logged potential against
    the CPU's ``potential_energy`` of the same state at rtol 1e-5;
 10. time the backward kernel against its plain version at N = 16,384 and
-    alone at N = 131,072 (as phase 5, device time too), one gradient step
-    against one forward step, and profile one gradient call;
+    alone at N = 131,072 (as phase 5, device time too); one gradient of a
+    4-step euler rollout as one CUDA-graph replay
+    (``autodiff.graphed_value_and_grad``) and eagerly, in turns, against
+    one forward step (ms a call and a rollout step, grad_over_forward,
+    capture seconds, peak memory) and profiled each way (device time,
+    ops, idle share); one graphed gradient at suite config 3's N =
+    131,072; then the gradient graph of phase 7's rollouts in reference,
+    momentum and elastic mode against the eager gradient (bitwise where
+    the eager gradient repeats, which is checked) and the oracle path,
+    with B1's and B2's launches by replay equal to the eager call's;
 11. ``forceModel=bh``'s slot-pack kernels (B5, and B4 without moments)
     against their plain versions on examples/million_bodies.txt's scene
     (N = 1,048,576) and on a crowded state: rows bitwise, moments at 2e-6;
@@ -194,8 +202,10 @@ Phases, each of which exits non-zero on failure:
     finite, positive rates, the path's kernels launched); config 6's
     scene in an untimed eager run: each step's tier and giants, and one
     step's heaviest kernels; then
-    examples/shooting_gradient_torch.py through B1 and B2, miss^2 below 1%
-    of its start; then ``--debug-nans``: an overflowing state exits
+    examples/shooting_gradient_torch.py through B1 and B2, each gradient
+    a replay of its CUDA graph, miss^2 below 1% of its start, and its
+    first gradient op by op, bitwise the graph's, one call timed each
+    way; then ``--debug-nans``: an overflowing state exits
     non-zero with ``FloatingPointError`` at step 19, and the default scene
     for 20 steps with frames is bitwise the same with and without it;
 36. B3's cell-slice form (the sharded bh step's): the 2-D million scene
@@ -242,7 +252,14 @@ Phases, each of which exits non-zero on failure:
     float64 through the oracle's ring against the single-device oracle
     in float64 (see ``sharded_gradients``); bitwise or not, and the
     gradient's host time sharded and single-device; with two cards or
-    more the same over min(4, cards) ranks. B2's launches on that run are
+    more the same over 2 and min(4, cards) ranks. Each of those gradients
+    is also taken as one CUDA graph that holds the ring's NCCL collectives
+    and their transposes: bitwise the eager sharded gradient on every rank
+    (or within GRAD_GATE), replays repeating, B1's and B2's launches by
+    replay equal to the eager call's, a replay's and an eager call's host
+    ms, capture seconds and peak memory; with two cards or more, a rank
+    raising between gradient replays must end the launch within 60 s.
+    B2's launches on the last of those runs are
     the ``pair_bwd_kernel_ring`` row's: on one card a one-rank group's,
     every tile the whole array at offsets 0 and 0; with more cards the
     multi-rank run's, hops on other ranks' rows among them. Beside the
@@ -1464,26 +1481,173 @@ def phase_bwd_timing(dev, default_scene):
     return ms, dms, float(np.mean(times["plain"])), bound
 
 
-def phase_grad_over_forward(state):
-    """bench/grad_step.py's grad_over_forward: one gradient step of a
-    4-step euler rollout through the kernels, against one forward step, and
-    the profile of one gradient call."""
+def counted(fn):
+    """fn's result, cloned off any static output, and the (B1, B2) launch
+    counts it added."""
+    from nbodyax_torch.physics.kernels import tile_accumulators_raw
+    from nbodyax_torch.physics.kernels_bwd import raw_backward
+    tile_accumulators_raw.launches = raw_backward.launches = 0
+    value, grads = fn()
+    out = value.clone(), [g.clone() for g in grads]
+    torch.cuda.synchronize()
+    return out, (tile_accumulators_raw.launches, raw_backward.launches)
+
+
+def phase_grad_graph(state, runs=(("euler", 4, 1), ("leapfrog", 2, 2)),
+                     modes=("reference", "momentum", "elastic")):
+    """10. The gradient as one CUDA-graph replay
+    (``autodiff.graphed_value_and_grad``): phase 7's rollouts of the
+    default scene in each collision mode, d/d(pos, vel, mass). The eager
+    gradient twice (does it repeat bit for bit?), the graph's first call
+    (warm-up, capture, replay) and a second replay: the graph must repeat
+    the eager gradient bit for bit where the eager one repeats, else lie
+    within GRAD_GATE of it; both within GRAD_GATE of the oracle path
+    (autograd of the torch oracle), but momentum mode's mass gradient,
+    which float32 rounding swamps on this scene in every engine (phase 39,
+    ``sharded_gradients``), and which the graph-against-eager check holds;
+    B1's and B2's launches by a replay equal to the eager call's and to
+    phase 7's count."""
+    from nbodyax_torch.autodiff import graphed_value_and_grad, make_loss
     from nbodyax_torch.backends import build_accum_fn
+    from nbodyax_torch.physics.step import PhysicsParams, make_step
+
+    for (integrator, steps, passes), mode in itertools.product(runs, modes):
+        cfg = dataclasses.replace(grad_config(integrator),
+                                  collision_mode=mode)
+        p = PhysicsParams.from_config(cfg)
+
+        def loss(backend):
+            return make_loss(make_step(p, accum_fn=build_accum_fn(
+                backend, p, state.pos.device)), steps, terminal_loss)
+        with graphed_value_and_grad(loss("pallas")) as vg:
+            e1, n_eager = counted(lambda: vg.eager(state))
+            e2, _ = counted(lambda: vg.eager(state))
+            g1, n_first = counted(lambda: vg(state))
+            g2, n_graph = counted(lambda: vg(state))
+            capture = vg.capture_seconds
+        oracle = graphed_value_and_grad(loss("jnp")).eager(state)[1]
+        repeats = all(torch.equal(a, b) for a, b in zip(e1[1], e2[1]))
+        bitwise = (torch.equal(g1[0], e1[0]) and all(
+            torch.equal(a, b) for a, b in zip(g1[1], e1[1])))
+        replays = all(torch.equal(a, b) for a, b in zip(g1[1], g2[1]))
+        vs_eager = bwd_errors(g1[1], e1[1])
+        vs_oracle = bwd_errors(g1[1], oracle)
+        want = (2 * steps * passes, 2 * (steps * passes - (passes - 1)))
+        print(f"gradient graph, default scene N={state.capacity}, {steps} "
+              f"{integrator} steps, {mode}: capture {capture:.3f} s; eager "
+              f"repeats bitwise {repeats}; graph bitwise eager {bitwise} "
+              f"(d/d(pos, vel, mass) "
+              f"{', '.join(f'{e:.3e}' for e in vs_eager)} of the largest), "
+              f"replays repeat {replays}; against the oracle path "
+              f"{', '.join(f'{e:.3e}' for e in vs_oracle)} (gate "
+              f"{GRAD_GATE}); B1, B2 launches eager {n_eager}, first call "
+              f"{n_first}, replay {n_graph} (expected {want})")
+        gated = vs_oracle[:2] if mode == "momentum" else vs_oracle
+        check((bitwise if repeats else max(vs_eager) < GRAD_GATE)
+              and replays and max(gated) < GRAD_GATE,
+              f"{integrator} {mode} gradient graph: off the eager gradient "
+              f"or the oracle path")
+        check(n_eager == n_first == n_graph == want,
+              f"{integrator} {mode} gradient graph: launches {n_eager}, "
+              f"{n_first}, {n_graph}, expected {want}")
+
+
+def peak_of(fn):
+    """fn's result and the peak device memory allocated while it ran."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated()
+
+
+def phase_grad_over_forward(state):
+    """bench/grad_step.py's grad_over_forward: one gradient of a 4-step
+    euler rollout of the default scene through the kernels, graphed and
+    eager in turns (graph, eager, eager, graph), against one forward step
+    the same way (a CUDA-graph replay, and eagerly):
+    ms a call and a rollout step, capture seconds and peak device memory
+    of each; the profile of one gradient call each way (device time, ops,
+    idle share); the eager call beside the parent's two eager forms (its
+    checkpoints preserving the generator state, and its ``rollout_grads``
+    timing), in turns. Then one graphed gradient at suite config 3's N =
+    131,072 (capture seconds, peak memory, ms a call, one eager call
+    beside it)."""
+    from torch.utils.checkpoint import checkpoint
+
+    from nbodyax_torch.autodiff import graphed_value_and_grad, make_loss
+    from nbodyax_torch.backends import build_accum_fn
+    from nbodyax_torch.graphs import capture
     from nbodyax_torch.physics.step import PhysicsParams, make_step
 
     cfg, steps = grad_config("euler"), 4
     p = PhysicsParams.from_config(cfg)
     step = make_step(p, accum_fn=build_accum_fn("pallas", p,
                                                 state.pos.device))
-    fwd_ms = time_ms(lambda: step(state), reps=20)
-    grad_ms = time_ms(lambda: rollout_grads(state, cfg, "pallas", steps),
-                      reps=5) / steps
-    print(f"gradient step N={state.capacity} ({steps}-step euler rollout, "
-          f"remat): {grad_ms:.4f} ms a step; forward step {fwd_ms:.4f} ms; "
-          f"grad_over_forward {grad_ms / fwd_ms:.4f}")
-    profile_breakdown(lambda: rollout_grads(state, cfg, "pallas", steps), 3,
-                      f"gradient of a {steps}-step euler rollout "
-                      f"N={state.capacity}")
+    fwd_ms = {"eager": time_ms(lambda: step(state), reps=20)}
+    # the forward step as one CUDA-graph replay, the graphed gradient's
+    # counterpart (bench/grad_step.py jits both)
+    with torch.no_grad():
+        fwd_graph, _, _ = capture(lambda _: step(state), lambda: step(state),
+                                  "the forward step")
+    fwd_ms["graph"] = time_ms(fwd_graph.replay, reps=20)
+    del fwd_graph
+    loss = make_loss(step, steps, terminal_loss)
+    label = f"{steps}-step euler rollout N={state.capacity}"
+    with graphed_value_and_grad(loss, wrt=("pos", "mass")) as vg:
+        _, eager_peak = peak_of(lambda: vg.eager(state))
+        _, graph_peak = peak_of(lambda: vg(state))
+        times = {"graph": [], "eager": []}
+        for way in ("graph", "eager", "eager", "graph"):
+            fn = vg if way == "graph" else vg.eager
+            times[way].append(time_ms(lambda: fn(state), reps=5))
+        peaks = {"graph": graph_peak, "eager": eager_peak}
+        for way, ts in times.items():
+            ms = float(np.mean(ts))
+            print(f"gradient {way} ({label}, remat): {ts} ms a call, "
+                  f"{ms / steps:.4f} ms a rollout step; forward step {way} "
+                  f"{fwd_ms[way]:.4f} ms; grad_over_forward "
+                  f"{ms / steps / fwd_ms[way]:.4f}; peak memory "
+                  f"{peaks[way] / 2**20:.1f} MiB"
+                  + (f"; capture {vg.capture_seconds:.3f} s"
+                     if way == "graph" else ""))
+        for way, fn in (("graph", vg), ("eager", vg.eager)):
+            profile_breakdown(lambda: fn(state), 3,
+                              f"gradient {way}, {label}", detail=True)
+
+    # the eager baseline against the parent's forms: its rollout saved and
+    # restored the card's generator state at each checkpoint
+    # (preserve_rng_state=True, which a capture refuses), and its phase 10
+    # timed rollout_grads, which builds the step on every call
+    def parent_loss(s):
+        for _ in range(steps):
+            s = checkpoint(step, s, use_reentrant=False)
+        return terminal_loss(s)
+    forms = {"eager": graphed_value_and_grad(loss, wrt=("pos", "mass")).eager,
+             "eager, preserve_rng_state=True": graphed_value_and_grad(
+                 parent_loss, wrt=("pos", "mass")).eager,
+             "rollout_grads (builds the step each call)":
+                 lambda s: rollout_grads(s, cfg, "pallas", steps)}
+    times = {k: [] for k in forms}
+    for k in (*forms, *reversed(forms)):
+        times[k].append(time_ms(lambda: forms[k](state), reps=5))
+    print(f"gradient eager forms ({label}, ms a call, in turns there and "
+          f"back): " + "; ".join(f"{k} {v}" for k, v in times.items()))
+
+    big, _ = exact_scene(state.pos.device, particle_count=131072)
+    step_big = make_step(p, accum_fn=build_accum_fn("pallas", p,
+                                                    big.pos.device))
+    with graphed_value_and_grad(make_loss(step_big, steps, terminal_loss),
+                                wrt=("pos", "mass")) as vg:
+        _, peak = peak_of(lambda: vg(big))
+        ms = time_ms(lambda: vg(big), reps=3, warm=1)
+        eager_ms = time_ms(lambda: vg.eager(big), reps=1, warm=1)
+        print(f"gradient graph, {steps}-step euler rollout of suite config "
+              f"3's scene N={big.capacity}: {ms:.3f} ms a call "
+              f"({ms / steps:.3f} a rollout step), eager {eager_ms:.3f} ms; "
+              f"capture "
+              f"{vg.capture_seconds:.3f} s; peak memory {peak / 2**20:.1f} "
+              f"MiB")
 
 
 # ---------------------------------------------------------------------------
@@ -2993,9 +3157,12 @@ def phase_dense_bh_tiers(dev, steps=4):
 
 
 def phase_shooting_example():
-    """examples/shooting_gradient_torch.py on the card: miss^2 falls below
-    1% of its first value, through B1 forward and B2 backward (both counts
-    set to 0 before the run and read after it)."""
+    """examples/shooting_gradient_torch.py on the card, each gradient a
+    replay of its CUDA graph: miss^2 falls below 1% of its first value,
+    through B1 forward and B2 backward (both counts set to 0 before the
+    run and read after it); then the example's first gradient op by op
+    (``problem(device, eager=True)``): value and gradient bitwise the
+    graph's, and one call timed each way."""
     import runpy
     from nbodyax_torch.physics.kernels import tile_accumulators_raw
     from nbodyax_torch.physics.kernels_bwd import raw_backward
@@ -3011,11 +3178,24 @@ def phase_shooting_example():
     print(buf.getvalue().rstrip())
     miss = [float(v) for v in re.findall(r"miss\^2 = ([0-9.]+)",
                                          buf.getvalue())]
-    print(f"shooting example: {wall:.2f} s, {b1} B1 and {b2} B2 launches, "
-          f"miss^2 {miss[0]} -> {miss[-1]}")
+    print(f"shooting example, graph: {wall:.2f} s, {b1} B1 and {b2} B2 "
+          f"launches, miss^2 {miss[0]} -> {miss[-1]}")
     check(rc == 0 and len(miss) == 6, f"shooting example: rc {rc}, {miss}")
     check(miss[-1] < 0.01 * miss[0], f"shooting example: miss^2 {miss}")
     check(b1 > 0 and b2 > 0, f"shooting example: {b1} B1, {b2} B2 launches")
+    firsts, ms = [], []
+    for eager in (False, True):
+        v0, vg = example["problem"]("cuda", eager)
+        val, g = vg(v0)
+        firsts.append((val.clone(), g.clone()))
+        ms.append(time_ms(lambda: vg(v0), reps=3, warm=0))
+        vg.close()
+    first_same = all(torch.equal(a, b) for a, b in zip(*firsts))
+    print(f"shooting example: {wall:.2f} s graphed; one gradient "
+          f"{ms[0]:.3f} ms graphed, {ms[1]:.3f} ms eager (CUDA events, "
+          f"warm); first value and gradient bitwise {first_same}")
+    check(first_same, "shooting example: the graphed gradient left the "
+                      "eager one")
 
 
 def phase_debug_nans():
@@ -3416,7 +3596,8 @@ def phase_collectives_on_cuda():
     if cards < 2:
         print("sharded_multicard: not run (1 card)")
         return grads
-    grads = sharded_gradients(min(4, cards), "cuda")
+    for ranks in sorted({2, min(4, cards)}):
+        grads = sharded_gradients(ranks, "cuda")
     phase_multicard(cards)
     return grads
 
@@ -3588,6 +3769,60 @@ def phase_multicard(cards, suite=True):
     phase_multicard_fault(max(ranks_list), work, child)
 
 
+GRAD_FAULT_CHILD = r"""
+import os, sys
+sys.path.insert(0, sys.argv[1])
+from nbodyax_torch.autodiff import graphed_value_and_grad, make_loss
+from nbodyax_torch.config import SimConfig
+from nbodyax_torch.physics.step import PhysicsParams
+from nbodyax_torch.scenes import init_scene
+from nbodyax_torch.sharding import (close_group, make_group,
+                                    make_sharded_step, pad_to_shards,
+                                    shard_state)
+world = int(os.environ["WORLD_SIZE"])
+group = make_group(world, sys.argv[2])
+cfg = SimConfig(softening=100.0, save_images=False, shards=world,
+                particle_count=int(sys.argv[3]))
+state = init_scene(cfg, device=group.device)
+local = shard_state(pad_to_shards(state, world), group)
+loss = make_loss(make_sharded_step(cfg, PhysicsParams.from_config(cfg),
+                                   group), 4,
+                 lambda s: ((s.pos / 1e3) ** 2).sum() / state.capacity)
+failed = True
+try:
+    # the graph goes before the group does, on the failing rank too
+    with graphed_value_and_grad(loss) as vg:
+        for i in range(6):
+            if i == 3 and group.rank == 1:
+                raise RuntimeError("injected fault between gradient replays")
+            float(vg(local)[0])
+    failed = False
+finally:
+    close_group(failed)
+"""
+
+
+def phase_grad_fault(ranks, work, device="cuda", n=16384):
+    """39, with two cards or more: the sharded gradient graph over
+    ``ranks`` cards (the default scene, 4 euler steps), whose rank 1
+    raises between its third and fourth replay: the launch must end,
+    non-zero, within 60 s (F8's bound), the fault printed."""
+    child = os.path.join(work, "grad_fault.py")
+    with open(child, "w") as f:
+        f.write(GRAD_FAULT_CHILD)
+    t0 = time.perf_counter()
+    rc, out, err = finish(torchrun(ranks, [child, HERE, device, str(n)]),
+                          150)
+    wall = time.perf_counter() - t0
+    seen = "injected fault between gradient replays" in out + err
+    print(f"sharded_multicard gradient fault: rank 1 of {ranks} raising "
+          f"between gradient replays ended the launch in {wall:.1f} s (exit "
+          f"code {rc}; the fault in its output: {seen})")
+    check(wall < 60 and rc not in (0, None) and seen,
+          f"a rank raising between gradient replays did not end the launch "
+          f"within 60 s (exit code {rc} after {wall:.1f} s)")
+
+
 def phase_multicard_fault(ranks, work, child):
     """39, with two cards or more: a sharded graph run over ``ranks`` cards
     (the default scene, 60 steps) whose rank 1 raises between two replays
@@ -3635,13 +3870,14 @@ def phase_multicard_fault(ranks, work, child):
           f"{same}")
     check(same and "Relaunch 1 of 1" in lines[1],
           "the relaunched sharded graph run left the straight run")
+    phase_grad_fault(ranks, work)
 
 
 PHASE39_GRAD_CHILD = r"""
 import dataclasses, json, os, sys, time
 import torch
 sys.path.insert(0, sys.argv[1])
-from nbodyax_torch.autodiff import make_loss
+from nbodyax_torch.autodiff import graphed_value_and_grad, make_loss
 from nbodyax_torch.backends import build_accum_fn
 from nbodyax_torch.config import SimConfig
 from nbodyax_torch.physics import _build
@@ -3650,8 +3886,9 @@ from nbodyax_torch.physics import kernels_bwd
 from nbodyax_torch.physics.kernels_bwd import raw_backward
 from nbodyax_torch.physics.step import PhysicsParams, make_step
 from nbodyax_torch.scenes import init_scene
-from nbodyax_torch.sharding import (make_group, make_sharded_step,
-                                    pad_to_shards, shard_state)
+from nbodyax_torch.sharding import (close_group, make_group,
+                                    make_sharded_step, pad_to_shards,
+                                    shard_state)
 world = int(os.environ["WORLD_SIZE"])
 group = make_group(world, sys.argv[2])
 dev = group.device
@@ -3664,17 +3901,18 @@ def sync():
         torch.cuda.synchronize(dev)
 
 
-def grads(step, state, n, steps):
-    # d/d(pos, vel, mass) of this rank's share of phase 10's terminal loss
-    # (the alive bodies' squared distance to the origin, over the capacity)
-    leaves = [t.detach().clone().requires_grad_(True) for t in state[:3]]
-
+def share_loss(step, n, steps):
+    # this rank's share of phase 10's terminal loss (the alive bodies'
+    # squared distance to the origin, over the capacity)
     def share(s):
         w = (s.mass > 0).to(torch.float32)
         return (w * (s.pos * s.pos).sum(-1)).sum() / n
-    loss = make_loss(step, steps, share)(state._replace(
-        pos=leaves[0], vel=leaves[1], mass=leaves[2]))
-    return torch.autograd.grad(loss, leaves)
+    return make_loss(step, steps, share)
+
+
+def grads(step, state, n, steps):
+    # d/d(pos, vel, mass) of the share, op by op
+    return graphed_value_and_grad(share_loss(step, n, steps)).eager(state)[1]
 
 
 def timed(fn):
@@ -3709,65 +3947,109 @@ def double(state):
                              ("pos", "vel", "mass", "radius", "sim_time")})
 
 
+def replay_counted(vg, state):
+    # the graph's gradient (cloned) and the B1, B2 launches of a replay
+    tile_accumulators_raw.launches = raw_backward.launches = 0
+    _, out = vg(state)
+    return ([g.clone() for g in out],
+            (tile_accumulators_raw.launches, raw_backward.launches))
+
+
+def all_ranks(x):
+    # the ranks' floats, in rank order
+    return group.all_gather(torch.tensor([float(x)], device=dev)).tolist()
+
+
 rows, launches = [], {"b1": 0, "b2": 0, "b2_ring_hops": 0}
-for integ, steps in (("euler", 4), ("leapfrog", 2)):
-    for mode in ("reference", "momentum", "elastic"):
-        cfg = SimConfig(collision_mode=mode, softening=100.0,
-                        integrator=integ, save_images=False, shards=world,
-                        particle_count=int(sys.argv[3]))
-        p = PhysicsParams.from_config(cfg)
-        state = init_scene(cfg, device=dev)
-        n = state.capacity
-        local = shard_state(pad_to_shards(state, world), group)
-        sharded = make_sharded_step(cfg, p, group)
-        tile_accumulators_raw.launches = raw_backward.launches = 0
-        kernels_bwd.raw_backward = hop_counted
-        gs, _ = timed(lambda: grads(sharded, local, n, steps))
-        kernels_bwd.raw_backward = raw_backward
-        launches["b1"] += tile_accumulators_raw.launches
-        launches["b2"] += raw_backward.launches
-        gs, ms = timed(lambda: grads(sharded, local, n, steps))
-        gs = [group.all_gather(g)[:n] for g in gs]
-        g64 = None
-        if mode == "momentum":
-            # float64 through the torch oracle's ring: the mass gradient's
-            # float32 rounding cannot hide a wrong ring there
-            local64 = shard_state(pad_to_shards(double(state), world), group)
-            g64 = grads(make_sharded_step(dataclasses.replace(
-                cfg, backend="jnp"), p, group), local64, n, steps)
-            g64 = [group.all_gather(g)[:n] for g in g64]
-        if group.rank:
-            continue
-        single = make_step(p, accum_fn=build_accum_fn("auto", p, dev))
-        gl, _ = timed(lambda: grads(single, state, n, steps))
-        gl, ms1 = timed(lambda: grads(single, state, n, steps))
-        oracle = make_step(p, accum_fn=build_accum_fn("jnp", p, dev))
-        go = grads(oracle, state, n, steps)
-        row = dict(integrator=integ, steps=steps, mode=mode,
-                   err=errs(gs, gl), err_oracle=errs(gs, go),
-                   engines=errs(go, gl),
-                   nonzero=all(float(b.abs().max()) > 0 for b in gl),
-                   finite=all(bool(torch.isfinite(a).all()) for a in gs),
-                   bitwise=all(torch.equal(a, b) for a, b in zip(gs, gl)),
-                   sharded_ms=ms, single_ms=ms1)
-        if g64 is not None:
-            w64 = grads(oracle, double(state), n, steps)
-            i = int((gl[2] - go[2]).abs().argmax())
-            row.update(
-                err64=errs(g64, w64),
-                # each float32 mass gradient against the float64 one
-                mass_vs_f64={k: errs(g[2:], w64[2:])[0] for k, g in
-                             (("sharded", gs), ("kernel", gl),
-                              ("oracle", go))},
-                worst=dict(index=i, mass=float(state.mass[i]),
-                           kernel=float(gl[2][i]), oracle=float(go[2][i]),
-                           sharded=float(gs[2][i]), f64=float(w64[2][i]),
-                           largest_f64=float(w64[2].abs().max())))
-        rows.append(row)
+
+
+def case(integ, steps, mode):
+    cfg = SimConfig(collision_mode=mode, softening=100.0,
+                    integrator=integ, save_images=False, shards=world,
+                    particle_count=int(sys.argv[3]))
+    p = PhysicsParams.from_config(cfg)
+    state = init_scene(cfg, device=dev)
+    n = state.capacity
+    local = shard_state(pad_to_shards(state, world), group)
+    sharded = make_sharded_step(cfg, p, group)
+    tile_accumulators_raw.launches = raw_backward.launches = 0
+    kernels_bwd.raw_backward = hop_counted
+    gs, _ = timed(lambda: grads(sharded, local, n, steps))
+    kernels_bwd.raw_backward = raw_backward
+    eager_launches = (tile_accumulators_raw.launches, raw_backward.launches)
+    launches["b1"] += tile_accumulators_raw.launches
+    launches["b2"] += raw_backward.launches
+    gs, ms = timed(lambda: grads(sharded, local, n, steps))
+    # the same gradient as one CUDA-graph replay: warm-up, capture and a
+    # replay, then a timed replay; closed before the group goes
+    with graphed_value_and_grad(share_loss(sharded, n, steps)) as vg:
+        (gg, graph_launches), first_ms = timed(lambda: replay_counted(
+            vg, local))
+        gg2, graph_ms = timed(lambda: vg(local)[1])
+        replays = all(torch.equal(a, b) for a, b in zip(gg, gg2))
+        capture = vg.capture_seconds
+    graph = dict(
+        bitwise=all_ranks(all(torch.equal(a, b) for a, b in zip(gg, gs))),
+        err=all_ranks(max(errs(gg, gs))), replays=all_ranks(replays),
+        launches_equal=all_ranks(graph_launches == eager_launches),
+        launches=list(graph_launches), capture_s=capture,
+        first_call_ms=first_ms, ms=graph_ms,
+        peak_mib=(torch.cuda.max_memory_allocated(dev) / 2**20
+                  if dev.type == "cuda" else None))
+    gg = [group.all_gather(g)[:n] for g in gg]
+    gs = [group.all_gather(g)[:n] for g in gs]
+    g64 = None
+    if mode == "momentum":
+        # float64 through the torch oracle's ring: the mass gradient's
+        # float32 rounding cannot hide a wrong ring there
+        local64 = shard_state(pad_to_shards(double(state), world), group)
+        g64 = grads(make_sharded_step(dataclasses.replace(
+            cfg, backend="jnp"), p, group), local64, n, steps)
+        g64 = [group.all_gather(g)[:n] for g in g64]
+    if group.rank:
+        return
+    single = make_step(p, accum_fn=build_accum_fn("auto", p, dev))
+    gl, _ = timed(lambda: grads(single, state, n, steps))
+    gl, ms1 = timed(lambda: grads(single, state, n, steps))
+    oracle = make_step(p, accum_fn=build_accum_fn("jnp", p, dev))
+    go = grads(oracle, state, n, steps)
+    graph.update(err_single=errs(gg, gl))
+    row = dict(integrator=integ, steps=steps, mode=mode,
+               err=errs(gs, gl), err_oracle=errs(gs, go),
+               engines=errs(go, gl),
+               nonzero=all(float(b.abs().max()) > 0 for b in gl),
+               finite=all(bool(torch.isfinite(a).all()) for a in gs),
+               bitwise=all(torch.equal(a, b) for a, b in zip(gs, gl)),
+               sharded_ms=ms, single_ms=ms1, graph=graph)
+    if g64 is not None:
+        w64 = grads(oracle, double(state), n, steps)
+        i = int((gl[2] - go[2]).abs().argmax())
+        row.update(
+            err64=errs(g64, w64),
+            # each float32 mass gradient against the float64 one
+            mass_vs_f64={k: errs(g[2:], w64[2:])[0] for k, g in
+                         (("sharded", gs), ("kernel", gl),
+                          ("oracle", go))},
+            worst=dict(index=i, mass=float(state.mass[i]),
+                       kernel=float(gl[2][i]), oracle=float(go[2][i]),
+                       sharded=float(gs[2][i]), f64=float(w64[2][i]),
+                       largest_f64=float(w64[2].abs().max())))
+    rows.append(row)
+
+
+failed = True
+try:
+    for integ, steps in (("euler", 4), ("leapfrog", 2)):
+        for mode in ("reference", "momentum", "elastic"):
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(dev)
+            case(integ, steps, mode)
+    failed = False
+finally:
+    close_group(failed)
 if group.rank == 0:
-    print(json.dumps({"backend": torch.distributed.get_backend(),
+    print(json.dumps({"backend": "nccl" if dev.type == "cuda" else "gloo",
                       "ranks": world, "launches": launches, "rows": rows}))
-torch.distributed.destroy_process_group()
 """
 
 RESUME_CHILD = r"""
@@ -3872,6 +4154,25 @@ def sharded_gradients(ranks, device, n=16384):
             gated += row["err"][2:] + row["err_oracle"][2:]
         check(row["finite"] and row["nonzero"] and max(gated) < GRAD_GATE,
               f"sharded gradient {row}: off the single-device one")
+        graph = row["graph"]
+        print(f"  as one CUDA-graph replay: bitwise the eager sharded "
+              f"gradient on each rank {graph['bitwise']} (largest error "
+              f"{max(graph['err']):.3e}), replays repeat {graph['replays']}; "
+              f"against the single-device kernel path "
+              f"{fmt(graph['err_single'])}; {graph['ms']:.3f} ms a replay "
+              f"against {row['sharded_ms']:.3f} ms eager (host wall, warm); "
+              f"first call {graph['first_call_ms']:.1f} ms, capture "
+              f"{graph['capture_s']:.3f} s, peak {graph['peak_mib']} MiB "
+              f"on rank 0; B1, B2 launches a replay {graph['launches']}, "
+              f"equal to the eager call's on each rank "
+              f"{graph['launches_equal']}")
+        single_gated = graph["err_single"][:2] if momentum else \
+            graph["err_single"]
+        check(all(graph["replays"]) and all(graph["launches_equal"])
+              and (all(graph["bitwise"]) or max(graph["err"]) < GRAD_GATE)
+              and max(single_gated) < GRAD_GATE,
+              f"sharded gradient graph {row['mode']} {row['integrator']}: "
+              f"{graph}")
     b2, hops = res["launches"]["b2"], res["launches"]["b2_ring_hops"]
     print(f"sharded gradients ({time.perf_counter() - t0:.1f} s in "
           f"{ranks} process(es)): B1 {res['launches']['b1']} and B2 {b2} "
@@ -4058,6 +4359,7 @@ import numpy as np, torch
 import torch.distributed as dist
 sys.path.insert(0, sys.argv[1])
 from nbodyax_torch import cli, driver
+from nbodyax_torch.graphs import read_counters
 from nbodyax_torch.config import SimConfig
 from nbodyax_torch.physics import _build
 from nbodyax_torch.sharding import make_group, pad_to_shards
@@ -4091,7 +4393,7 @@ def cli_run(way, spec, work):
 
     saved = cli.run_simulation, dist.destroy_process_group
     cli.run_simulation, dist.destroy_process_group = run, lambda *a: None
-    before = driver._read_counters()
+    before = read_counters()
     os.chdir(work)
     try:
         with contextlib.redirect_stdout(buf):
@@ -4099,7 +4401,7 @@ def cli_run(way, spec, work):
     finally:
         os.chdir(cwd)
         cli.run_simulation, dist.destroy_process_group = saved
-    after = driver._read_counters()
+    after = read_counters()
     out = buf.getvalue()
     taken = [l for l in out.splitlines() if l.startswith("Time taken: ")]
     res = results[-1]
@@ -4319,6 +4621,7 @@ def main() -> int:
     phase_energy(dev)
     bwd_ms, b2_dev_ms, bwd_plain_ms, b2_bound_ = phase_bwd_timing(dev, scene)
     phase_grad_over_forward(default_state)
+    phase_grad_graph(default_state)
     bh_cfg = million_config()
     arrays_1m = million_scene(bh_cfg)
     b5_err, b4_err = phase_slotpack(dev, arrays_1m)

@@ -5,16 +5,20 @@ The PyTorch counterpart of ``examples/shooting_gradient.py``: the same 64
 bodies, target and descent. It optimizes body 0's initial velocity so that
 after a 40-step rollout (full physics: gravity from the 63 other bodies and
 collision handling) it arrives at a target point, by descending the
-gradient of the terminal miss distance through the whole simulation
-(``nbodyax_torch.autodiff.rollout``, ``torch.autograd.grad``).
+gradient of the terminal miss distance through the whole simulation.
+The JAX example's ``jax.jit(jax.value_and_grad(miss))`` is
+``nbodyax_torch.autodiff.graphed_value_and_grad`` of ``make_loss``.
 
     python examples/shooting_gradient_torch.py [--device cuda|cpu]
 
 On a card (the default) the step runs the hand-written kernels: the
 all-pairs kernel forward and its backward kernel in the gradient
-(``backend=pallas``). ``--device cpu`` runs the plain torch oracle
-(``physics/pairwise.py``), as the JAX example runs its jnp oracle; asking
-for a card where there is none is an error.
+(``backend=pallas``), and each gradient is one replay of a CUDA graph
+captured at the first call (``problem(device, eager=True)`` gives the
+same gradient op by op).
+``--device cpu`` runs the plain torch oracle (``physics/pairwise.py``),
+as the JAX example runs its jnp oracle; asking for a card where there is
+none is an error.
 """
 
 import argparse
@@ -27,7 +31,8 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
-from nbodyax_torch.autodiff import rollout  # noqa: E402
+from nbodyax_torch.autodiff import (graphed_value_and_grad,  # noqa: E402
+                                    make_loss)
 from nbodyax_torch.backends import build_accum_fn  # noqa: E402
 from nbodyax_torch.config import SimConfig  # noqa: E402
 from nbodyax_torch.driver import resolve_device  # noqa: E402
@@ -38,9 +43,11 @@ N, SCALE, STEPS = 64, 100.0, 40
 TARGET = (75.0, -60.0)
 
 
-def problem(device):
+def problem(device, eager=False):
     """Body 0's initial velocity and ``value_and_grad(v0)``: the miss^2
-    of body 0 after the rollout and its gradient with respect to v0."""
+    of body 0 after the rollout and its gradient with respect to v0, both
+    overwritten by the next call on a card; ``value_and_grad.close()``
+    releases its CUDA graph. ``eager``: the gradient op by op."""
     dev = resolve_device(device)
     rng = np.random.RandomState(7)
     state = make_state(
@@ -55,13 +62,17 @@ def problem(device):
         "pallas" if dev.type == "cuda" else "jnp", p, dev))
     target = torch.tensor(TARGET, device=dev)
 
-    def value_and_grad(v0):
-        v0 = v0.detach().requires_grad_(True)
-        final, _ = rollout(step, state._replace(
-            vel=torch.cat([v0[None], state.vel[1:]])), STEPS)
-        val = (((final.pos[0] - target) / SCALE) ** 2).sum()
-        return val.detach(), torch.autograd.grad(val, v0)[0]
+    vg = graphed_value_and_grad(make_loss(
+        step, STEPS, lambda s: (((s.pos[0] - target) / SCALE) ** 2).sum()),
+        wrt=("vel",))
+    run = vg.eager if eager else vg
 
+    def value_and_grad(v0):
+        val, (g,) = run(state._replace(
+            vel=torch.cat([v0[None], state.vel[1:]])))
+        return val, g[0]
+
+    value_and_grad.close = vg.close
     return state.vel[0].clone(), value_and_grad
 
 
@@ -80,6 +91,7 @@ def main(argv=None):
         if it % 4 == 0 or it == 20:
             print(f"iter {it:2d}: miss^2 = {float(val):.6f}")
     print(f"optimized initial velocity for body 0: {v0.cpu().numpy()}")
+    vg.close()
     return 0
 
 

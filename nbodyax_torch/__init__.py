@@ -12,7 +12,10 @@ imports neither it nor JAX. Module names mirror ``nbodyax``:
 - ``physics``  — the torch oracle, the CUDA all-pairs kernel and its
   backward kernel, collisions, the step (euler, leapfrog, yoshida4).
 - ``backends`` — which all-pairs engine a config selects.
-- ``autodiff`` — differentiable rollouts (``rollout``, ``make_loss``).
+- ``autodiff`` — differentiable rollouts (``rollout``, ``make_loss``) and
+  their gradient as one CUDA-graph replay (``graphed_value_and_grad``).
+- ``graphs``   — how a CUDA graph is captured (warm-up, launch counts,
+  ``GraphCaptureError``), for the driver's windows and the gradient.
 - ``render``   — rasterizer and P5 writer.
 - ``metrics``  — conservation scalars, step meter, JSONL logging.
 - ``io.checkpoint`` — checkpoint files, in ``nbodyax``'s format.
@@ -36,6 +39,7 @@ _EXPORTS = {
     "run_simulation": "nbodyax_torch.driver",
     "rollout": "nbodyax_torch.autodiff",
     "make_loss": "nbodyax_torch.autodiff",
+    "graphed_value_and_grad": "nbodyax_torch.autodiff",
 }
 
 __all__ = sorted(_EXPORTS)

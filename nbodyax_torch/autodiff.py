@@ -48,18 +48,36 @@ of the whole loss's gradient, as ``nbodyax`` does through its
 ``ppermute`` ring (tests/test_torch_sharding_grad.py). Adaptive dt under
 shards is forward-only in both packages: the minimum over ranks raises
 ``NotImplementedError`` in the backward.
+
+``graphed_value_and_grad(loss, wrt)`` is the caller's counterpart of
+``jax.jit(jax.value_and_grad(loss))`` (``nbodyax/autodiff.py`` leaves
+``jit`` to its callers, and they use it: ``examples/shooting_gradient.py``,
+``bench/grad_step.py``). On a card its first call captures the whole
+gradient, the forward of every step, each step's re-run inside the
+backward and the backward with its kernels, into one CUDA graph; every
+later call copies the state into the graph's static inputs and replays
+it. On the CPU it runs the same code eagerly. The name says what it is:
+``value_and_grad``, with the CUDA graph standing where ``jit`` stands.
+Under shards each rank makes one over its ``make_sharded_step`` loss; the
+graph then holds the ring's NCCL collectives and their transposes, and
+every rank must call it alike (see ``_GraphedValueAndGrad``).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+import time
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from nbodyax_torch.graphs import add_counts, capture
 from nbodyax_torch.state import SimState
 
-__all__ = ["rollout", "make_loss"]
+__all__ = ["rollout", "make_loss", "graphed_value_and_grad"]
+
+# the SimState fields a gradient may be taken with respect to
+LEAVES = ("pos", "vel", "mass", "radius")
 
 
 def rollout(step_fn: Callable[[SimState], SimState], state: SimState,
@@ -79,7 +97,10 @@ def rollout(step_fn: Callable[[SimState], SimState], state: SimState,
     traj = []
     for _ in range(steps):
         if remat:
-            state = checkpoint(step_fn, state, use_reentrant=False)
+            # the step draws no random numbers, and a CUDA graph capture
+            # refuses the read of the card's generator state
+            state = checkpoint(step_fn, state, use_reentrant=False,
+                               preserve_rng_state=False)
         else:
             state = step_fn(state)
         if save_positions:
@@ -99,3 +120,133 @@ def make_loss(step_fn: Callable[[SimState], SimState], steps: int,
         return terminal_fn(final)
 
     return loss
+
+
+def graphed_value_and_grad(loss: Callable[[SimState], torch.Tensor],
+                           wrt: Sequence[str] = ("pos", "vel", "mass")
+                           ) -> "_GraphedValueAndGrad":
+    """``jax.jit(jax.value_and_grad(loss))`` for a scalar ``loss`` of a
+    SimState (a ``make_loss`` product): ``vg(state)`` returns ``(value,
+    grads)``, the gradients with respect to the fields ``wrt`` of
+    ``state``, in that order. On a card the first call captures one CUDA
+    graph and every call replays it; ``close()`` (or leaving a ``with``
+    block) releases it. See ``_GraphedValueAndGrad``."""
+    return _GraphedValueAndGrad(loss, wrt)
+
+
+class _GraphedValueAndGrad:
+    """The value and gradient of ``loss`` as one CUDA-graph replay.
+
+    ``body`` is what a capture records: ``loss(state)`` and
+    ``torch.autograd.grad`` of it with respect to the ``wrt`` fields, that
+    is the forward of every rollout step, each checkpointed step's re-run
+    in the backward, B1 and B2 on the card and the step tail's own ops.
+
+    A call on CUDA tensors: the first one copies the state into static
+    buffers (the ``wrt`` fields as leaves that require grad), runs
+    ``body`` once eagerly on a side stream (the kernel library's load,
+    the launch shapes, the allocator's blocks and, under shards, NCCL's
+    communicator and connections come from there, never from inside the
+    capture), and captures ``body`` over the buffers (``graphs.capture``).
+    Every call copies its state into the buffers and replays the graph. A
+    capture that fails raises ``graphs.GraphCaptureError``; nothing falls
+    back to the eager gradient.
+    A later call whose shapes, dtypes, device or ``step`` differ from the
+    first one's raises ``ValueError``: make another object. The value and
+    gradients returned are the graph's static outputs, which the next call
+    overwrites: clone what you keep. The kernel wrappers' launch counts
+    move by what the capture recorded on every replay; warm-up and
+    capture count nothing. ``capture_seconds`` is the warm-up's and the
+    capture's host time.
+
+    A call on CPU tensors runs ``body`` eagerly, and ``eager`` does so on
+    any device: the same code op by op, the card's A/B reference.
+
+    Under shards (``loss`` over ``sharding.make_sharded_step``), every rank
+    makes its object alike and calls it in the same order: the warm-up
+    runs every collective of the gradient eagerly, and then each rank
+    captures the same NCCL collectives in the same order (the ring's
+    shifts, ``_ShiftFn.backward``'s reverse shifts, the gathers and their
+    reduce_scatters). Close the object before the process group goes, the
+    failing rank too: NCCL tears a communicator down only once every graph
+    that captured its collectives is destroyed. ``forceModel=bh`` and
+    sharded adaptive dt have no gradient and raise as they do eagerly.
+    """
+
+    def __init__(self, loss: Callable[[SimState], torch.Tensor],
+                 wrt: Sequence[str] = ("pos", "vel", "mass")):
+        wrt = tuple(wrt)
+        bad = [f for f in wrt if f not in LEAVES]
+        if bad or not wrt or len(set(wrt)) != len(wrt):
+            raise ValueError(f"wrt must name distinct fields of {LEAVES}, "
+                             f"got {wrt}")
+        self.loss, self.wrt = loss, wrt
+        self.graph = None
+        self.buf = None         # the static inputs
+        self.out = None         # the static outputs: (value, grads)
+        self.key = None
+        self.delta = None       # launch counts a replay adds
+        self.capture_seconds = 0.0
+
+    def __enter__(self) -> "_GraphedValueAndGrad":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def close(self) -> None:
+        """Drop the graph, its static inputs and outputs, and hand its
+        private memory pool back to the card (tensors a caller still holds
+        from a call keep their blocks)."""
+        captured = self.graph is not None
+        self.graph = self.buf = self.out = self.key = None
+        if captured:
+            torch.cuda.empty_cache()
+
+    def body(self, state: SimState):
+        """``(value, grads)`` of ``loss`` at ``state``, whose ``wrt``
+        fields require grad: what a capture records."""
+        value = self.loss(state)
+        # a field the loss does not read has a zero gradient, as in JAX
+        grads = torch.autograd.grad(value,
+                                    [getattr(state, f) for f in self.wrt],
+                                    allow_unused=True, materialize_grads=True)
+        return value.detach(), grads
+
+    def eager(self, state: SimState):
+        """``(value, grads)`` at ``state``, op by op, on any device."""
+        return self.body(state._replace(**{
+            f: getattr(state, f).detach().requires_grad_(True)
+            for f in self.wrt}))
+
+    def __call__(self, state: SimState):
+        if state.pos.device.type != "cuda":
+            return self.eager(state)
+        key = (tuple((tuple(t.shape), t.dtype, t.device)
+                     for t in (*state[:4], state.sim_time)), state.step)
+        if self.graph is None:
+            t0 = time.perf_counter()
+            self._capture(state, key)
+            self.capture_seconds += time.perf_counter() - t0
+        elif key != self.key:
+            raise ValueError(
+                f"this gradient graph was captured for {self.key}, not "
+                f"{key}: make another graphed_value_and_grad")
+        with torch.no_grad():
+            for dst, src in zip(self.buf[:4], state[:4]):
+                dst.copy_(src)
+            self.buf.sim_time.copy_(state.sim_time)
+        self.graph.replay()
+        add_counts(self.delta)
+        return self.out
+
+    def _capture(self, state: SimState, key) -> None:
+        buf = SimState(
+            *(t.detach().clone(memory_format=torch.contiguous_format)
+              for t in state[:4]), state.step, state.sim_time.detach().clone())
+        buf = buf._replace(**{f: getattr(buf, f).requires_grad_(True)
+                              for f in self.wrt})
+        graph, out, delta = capture(lambda _: self.body(buf),
+                                    lambda: self.body(buf), "the gradient")
+        self.graph, self.buf, self.out, self.key = graph, buf, out, key
+        self.delta = delta

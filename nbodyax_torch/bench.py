@@ -32,7 +32,7 @@ import time
 
 import torch
 
-# the kernel wrappers' launch counts, in ``driver._launch_counters`` order
+# the kernel wrappers' launch counts, in ``graphs._launch_counters`` order
 KERNELS = ("pair_kernel", "pair_bwd_kernel", "near_kernel",
            "slot_pack_kernel", "slot_pack_moments_kernel")
 N_CARD, REPS_CARD = 1_048_576, 5
@@ -53,11 +53,11 @@ def device_line(dev: torch.device) -> str:
 
 
 def launches_since(before: list) -> dict:
-    """Each kernel's launches since ``driver._read_counters()`` gave
+    """Each kernel's launches since ``graphs.read_counters()`` gave
     ``before`` (replays counted as the driver counts them; 0 on the CPU,
     where the wrappers run their plain versions)."""
-    from nbodyax_torch.driver import _read_counters
-    return {k: a - b for k, a, b in zip(KERNELS, _read_counters(), before)}
+    from nbodyax_torch.graphs import read_counters
+    return {k: a - b for k, a, b in zip(KERNELS, read_counters(), before)}
 
 
 def window_runner(step, state, cfg, window: int, group=None):
@@ -127,13 +127,14 @@ def spread_keys(seconds: list) -> dict:
 
 def run(n: int, reps: int, dev: torch.device) -> dict:
     from nbodyax_torch.config import SimConfig
-    from nbodyax_torch.driver import _read_counters, build_step
+    from nbodyax_torch.driver import build_step
+    from nbodyax_torch.graphs import read_counters
     from nbodyax_torch.scenes import init_scene
 
     cfg = SimConfig(particle_count=n, collision_mode="reference",
                     save_images=False)
     state = init_scene(cfg, device=dev, parity=False)
-    before = _read_counters()
+    before = read_counters()
     _, seconds, _ = time_steps(build_step(cfg, dev), state, cfg, steps=reps,
                                chunk=1)
     return {"metric": METRIC.format(n=n),

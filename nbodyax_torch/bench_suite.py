@@ -57,7 +57,8 @@ import torch
 from nbodyax_torch.bench import (close_runner, device_line, launches_since,
                                  spread_keys, time_steps, time_windows,
                                  window_runner)
-from nbodyax_torch.driver import _copy_state, _read_counters
+from nbodyax_torch.driver import _copy_state
+from nbodyax_torch.graphs import read_counters
 
 
 def _rates(n: int, seconds: list) -> dict:
@@ -398,7 +399,7 @@ def main(argv=None) -> int:
     failed = True
     try:
         for c in configs:
-            t0, before = time.perf_counter(), _read_counters()
+            t0, before = time.perf_counter(), read_counters()
             line, _ = (CONFIGS[c](dev) if group is None
                        else CONFIGS[c](dev, group=group))
             line["bench_wall_s"] = round(time.perf_counter() - t0, 1)

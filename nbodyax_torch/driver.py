@@ -119,6 +119,7 @@ import torch
 
 from nbodyax_torch.backends import build_accum_fn
 from nbodyax_torch.config import SimConfig
+from nbodyax_torch.graphs import GraphCaptureError, add_counts, capture
 from nbodyax_torch.io.checkpoint import (latest_checkpoint, load_checkpoint,
                                          load_checkpoint_extra,
                                          save_checkpoint)
@@ -156,11 +157,6 @@ class RunResult:
     # capacity after each compaction that changed it: [(step, capacity)]
     capacities: list = dataclasses.field(default_factory=list)
     shards: int = 1         # ranks the bodies were sharded over
-
-
-class GraphCaptureError(RuntimeError):
-    """Capturing a window's CUDA graph failed: the step does something a
-    capture refuses (a host read, a copy from the host). Not retried."""
 
 
 # failures that reloading a checkpoint cannot mend: raised at once (a
@@ -401,26 +397,6 @@ class _Schedule:
         return k
 
 
-def _launch_counters():
-    """(owner, attribute) of every kernel wrapper's launch count."""
-    from nbodyax_torch.physics.kernels import tile_accumulators_raw
-    from nbodyax_torch.physics.kernels_bwd import raw_backward
-    from nbodyax_torch.physics.near_kernel import slots_near
-    from nbodyax_torch.physics.slotpack_kernel import pack_slots
-    return ((tile_accumulators_raw, "launches"), (raw_backward, "launches"),
-            (slots_near, "launches"), (pack_slots, "launches"),
-            (pack_slots, "moment_launches"))
-
-
-def _read_counters() -> list:
-    return [getattr(o, a) for o, a in _launch_counters()]
-
-
-def _write_counters(values) -> None:
-    for (o, a), v in zip(_launch_counters(), values):
-        setattr(o, a, v)
-
-
 def _copy_state(s: SimState) -> SimState:
     return SimState(*(t.clone() for t in s[:4]), s.step, s.sim_time.clone())
 
@@ -594,44 +570,37 @@ class _GraphWindows:
         ``buf``."""
         if self.writer is not None:
             self.writer.drain()   # its thread copies frames off the card
-        counts = _read_counters()
         b, cfg = self.buf, self.cfg
-        # warm-up on a copy, on a side stream: the kernel library's first
-        # load, the cached launch shapes and constants and the allocator's
-        # blocks (and under shards NCCL's communicator and connections) come
-        # from here, never from inside the capture; every IF body runs,
-        # whatever its predicate
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side), graph_if.warm():
-            tmp = self.gather(self.step(_copy_state(b)))
-            vec_probe = conservation_vec(tmp)
-            if frames and self.renders:
-                render_state(tmp, cfg)
-        torch.cuda.current_stream().wait_stream(side)
-        vec = torch.empty_like(vec_probe)
+        # the static outputs, made outside the graph's pool, which they
+        # would otherwise hold after the graph is gone: conservation_vec's
+        # f32[4 + D] and the frames
+        vec = torch.empty(4 + b.pos.shape[1], dtype=torch.float32,
+                          device=b.pos.device)
         fbuf = (torch.empty((-(-k // self.k_img), cfg.img_height,
                              cfg.img_width), dtype=torch.uint8,
                             device=b.pos.device)
                 if frames and self.renders else None)
-        graph = torch.cuda.CUDAGraph()
-        before = _read_counters()
-        bodies = None
-        try:
-            with torch.no_grad(), graph_if.bodies() as bodies, \
-                    torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                self.body(k, frames, vec, fbuf)
-                self.nodes[k, frames] = (graph_if.capture_nodes(),
-                                         bodies.ifs, bodies.nodes)
-        except RuntimeError as e:
-            _write_counters(counts)
-            if bodies is not None:
+
+        def warm_up():
+            # on a copy; every IF body runs, whatever its predicate
+            with graph_if.warm():
+                tmp = self.gather(self.step(_copy_state(b)))
+                conservation_vec(tmp)
+                if frames and self.renders:
+                    render_state(tmp, cfg)
+
+        def body(_):
+            self.body(k, frames, vec, fbuf)
+            self.nodes[k, frames] = (graph_if.capture_nodes(), bodies.ifs,
+                                     bodies.nodes)
+
+        with torch.no_grad(), graph_if.bodies() as bodies:
+            try:
+                graph, _, delta = capture(body, warm_up,
+                                          f"a {k}-step window")
+            except BaseException:
                 bodies.release()
-            raise GraphCaptureError(
-                f"capturing a {k}-step window's CUDA graph failed: "
-                f"{e}") from e
-        delta = [a - c for a, c in zip(_read_counters(), before)]
-        _write_counters(counts)
+                raise
         # the IF bodies' pool lives as long as the graph
         return graph, vec, fbuf, delta, bodies
 
@@ -643,7 +612,7 @@ class _GraphWindows:
             self.capture_seconds += time.perf_counter() - t0
         graph, vec, fbuf, delta, _ = self.graphs[key]
         graph.replay()
-        _write_counters([a + d for a, d in zip(_read_counters(), delta)])
+        add_counts(delta)
         return vec, fbuf
 
     def advance(self, k: int, frames: bool):
