@@ -239,7 +239,8 @@ Phases, each of which exits non-zero on failure:
     sums round differently, and close encounters amplify that); sharded
     graph runs bitwise the sharded eager ones; suite config 5 on one card
     and sharded over each P, graph and eager; a rank raising between
-    replays, which must end the launch within 150 s, and under autoResume
+    replays, which must end the launch within 150 s, through graph
+    windows and through the eager sharded runner, and under autoResume
     its relaunch, bitwise the straight run; on one card the line
     ``sharded_multicard: not run (1 card)``. Then
     the gradient through the sharded ring: ``make_loss`` over
@@ -285,7 +286,12 @@ Phases, each of which exits non-zero on failure:
     and B5's launches equal, ``Time taken`` and capture seconds of each
     (the communicator made before the runs); a step that reads the host
     makes the sharded runner raise ``GraphCaptureError``.
-    Each of phases 28-41 prints its seconds.
+42. the counterparts of three ``bench/`` runners at small sizes, each
+    through its ``main`` in this process (``phase_bench_counterparts``):
+    ``bench_grad_step`` (N = 16,384, 2 steps), ``bench_modes`` (N =
+    16,384) and ``bench_near_ab`` (N = 65,536, 2-D uniform), their records
+    gated as phase 35 gates ``bench``'s, with their launches.
+    Each of phases 28-42 prints its seconds.
 
 The line before the last is a JSON object describing each kernel (the
 wrapper call's CUDA-event time ``ms``, the kernel's own device time by
@@ -305,6 +311,7 @@ import hashlib
 import io
 import itertools
 import json
+import math
 import os
 import re
 import subprocess
@@ -3134,6 +3141,68 @@ def phase_runners():
           f"{by[5]['ring_dryrun_wall_s']:.1f} s of launch wall")
 
 
+BENCH_COUNTERPARTS = (
+    ("bench_grad_step", "--n", "16384", "--steps", "2"),
+    ("bench_modes", "--n", "16384"),
+    ("bench_near_ab", "uniform", "1", "2", "65536"))
+
+
+def phase_bench_counterparts():
+    """42: the counterparts of three ``bench/`` runners at small sizes,
+    each through its ``main`` in this process, one after another (a
+    process of its own would spend about 10 s reaching the card):
+    ``nbodyax_torch.bench_grad_step`` (N = 16,384, 2 euler steps,
+    reference mode), ``bench_modes`` (N = 16,384, reference, momentum and
+    elastic) and ``bench_near_ab`` (N = 65,536, 2-D uniform, one round).
+    Gates, as phase 35 gates ``bench``'s line: every rate and time
+    positive, every state finite, a finite nonzero gradient, and each path
+    launched its kernels: a gradient replay B1 twice a step (the forward
+    and the backward's re-run) and B2 twice a step (its two counted
+    sides), each mode B1 once a window, the slots engine B3 and B5 once a
+    window and the rows engine neither. Their full sizes run as ``python
+    -m`` processes of their own (README)."""
+    import importlib
+    runs = []
+    for name, *args in BENCH_COUNTERPARTS:
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = importlib.import_module(f"nbodyax_torch.{name}").main(args)
+        check(rc == 0, f"{name} returned {rc}")
+        lines = [json.loads(l) for l in out.getvalue().splitlines()
+                 if l.startswith("{")]
+        for line in lines:
+            print(json.dumps(line))
+        print(f"{name} {' '.join(args)}: {time.perf_counter() - t0:.1f} s")
+        runs.append(lines)
+    (grad,), modes, (near,) = runs
+    rep = grad["launches_a_replay"]
+    check(grad["n"] == 16384 and grad["steps"] == 2
+          and math.isfinite(grad["grad_abs_sum"]) and grad["grad_abs_sum"] > 0
+          and grad["grad_wall_s"] > 0 and grad["forward_step_s"] > 0,
+          f"bench_grad_step: {grad}")
+    check(rep["pair_kernel"] == 4 and rep["pair_bwd_kernel"] == 4,
+          f"bench_grad_step: a replay launched {rep}")
+    check([m["mode"] for m in modes] == ["reference", "momentum", "elastic"],
+          f"bench_modes: modes {[m['mode'] for m in modes]}")
+    for m in modes:
+        check(m["finite"] and m["steps_per_sec"] > 0
+              and m["pairs_per_sec"] > 0
+              and m["launches"]["pair_kernel"] == m["reps"] + 1,
+              f"bench_modes: {m}")
+    rows, slots = near["rows"], near["slots"]
+    check(near["rows_step_s"] > 0 and near["slots_step_s"] > 0
+          and rows["finite"] and slots["finite"]
+          and rows["knobs"]["bh_near"] == "rows"
+          and slots["knobs"]["bh_near"] == "slots", f"bench_near_ab: {near}")
+    check(rows["launches"]["near_kernel"] == 0
+          and slots["launches"]["near_kernel"] == near["reps"] + 1
+          and slots["launches"]["slot_pack_moments_kernel"]
+          == near["reps"] + 1, f"bench_near_ab launches: rows "
+                               f"{rows['launches']}, slots "
+                               f"{slots['launches']}")
+
+
 def phase_dense_bh_tiers(dev, steps=4):
     """Where suite config 6's step goes (the uniform 1M scene in the
     default 1e5 field under bh, 100 times the million example's density):
@@ -3612,19 +3681,22 @@ if "--eager" in argv:
     argv.remove("--eager")
     cli.run_simulation = partial(driver.run_simulation, _eager=True)
 if "--fault" in argv:
-    # on a launch's first attempt, rank 1 raises between two replays, from
-    # step 20 on
+    # on a launch's first attempt, rank 1 raises between two windows (graph
+    # replays, or under --eager eager windows), from step 20 on
     argv.remove("--fault")
-    advance = driver._ShardedGraphWindows.advance
     first = os.environ.get("TORCHELASTIC_RESTART_COUNT", "0") == "0"
 
-    def failing(self, k, frames):
-        if first and os.environ.get("RANK") == "1" and self.state.step >= 20:
-            raise RuntimeError("injected fault between replays at step %d"
-                               % self.state.step)
-        return advance(self, k, frames)
+    def failing(advance):
+        def at(self, k, frames):
+            if (first and os.environ.get("RANK") == "1"
+                    and self.state.step >= 20):
+                raise RuntimeError("injected fault between replays at step "
+                                   "%d" % self.state.step)
+            return advance(self, k, frames)
+        return at
 
-    driver._ShardedGraphWindows.advance = failing
+    for runner in (driver._ShardedGraphWindows, driver._ShardedWindows):
+        runner.advance = failing(runner.advance)
 sys.exit(cli.main(argv))
 """
 
@@ -3823,30 +3895,45 @@ def phase_grad_fault(ranks, work, device="cuda", n=16384):
           f"within 60 s (exit code {rc} after {wall:.1f} s)")
 
 
-def phase_multicard_fault(ranks, work, child):
-    """39, with two cards or more: a sharded graph run over ``ranks`` cards
-    (the default scene, 60 steps) whose rank 1 raises between two replays
-    at step 20. Without autoResume the launch must end, non-zero, within
-    150 s: NCCL's watchdog does not track a replay, so only the failing
-    rank's exit (``close_group`` aborts its communicator) and torchrun's
-    teardown of its peers end it. With autoResume, a checkpoint every 20
-    steps and ``--max-restarts 1``, torchrun must relaunch every rank,
-    and the relaunched run must end on the straight run's state, bitwise.
-    """
+def fault_ends(ranks, work, child, eager=False):
+    """A sharded run over ``ranks`` cards (the default scene, 60 steps)
+    whose rank 1 raises between two windows at step 20, through graph
+    windows or (``eager``) the eager sharded runner: without autoResume
+    the launch must end, non-zero, within 150 s, the fault printed."""
+    way = "eager windows" if eager else "graph replays"
     base = [child, HERE, "--steps", "60", "--no-images", "--set",
             f"shards={ranks}"]
     t0 = time.perf_counter()
     rc, out, err = finish(torchrun(ranks, base + [
-        "--fault", "--set", f"checkpointPath={os.path.join(work, 'fault')}"]),
-        150)
+        "--fault", "--set",
+        f"checkpointPath={os.path.join(work, 'fault_' + way[:5])}"]
+        + (["--eager"] if eager else [])), 150)
     wall = time.perf_counter() - t0
     ended = wall < 150 and rc not in (0, None)
     seen = "injected fault between replays" in out + err
     print(f"sharded_multicard fault: rank 1 of {ranks} raising between "
-          f"replays at step 20 ended the launch: {ended} (exit code {rc}, "
+          f"{way} at step 20 ended the launch: {ended} (exit code {rc}, "
           f"{wall:.1f} s; the fault in its output: {seen})")
-    check(ended and seen, f"a rank raising between replays did not end the "
+    check(ended and seen, f"a rank raising between {way} did not end the "
                           f"launch (exit code {rc} after {wall:.1f} s)")
+
+
+def phase_multicard_fault(ranks, work, child):
+    """39, with two cards or more: a sharded run over ``ranks`` cards (the
+    default scene, 60 steps) whose rank 1 raises between two windows at
+    step 20, through graph windows and through the eager sharded runner
+    (``fault_ends``). Without autoResume the launch must end, non-zero,
+    within 150 s: NCCL's watchdog does not track a replay, so only the
+    failing rank's exit (``close_group`` aborts its communicator) and
+    torchrun's teardown of its peers end it. With autoResume, a checkpoint
+    every 20 steps and ``--max-restarts 1``, torchrun must relaunch every
+    rank, and the relaunched graph run must end on the straight run's
+    state, bitwise.
+    """
+    fault_ends(ranks, work, child)
+    fault_ends(ranks, work, child, eager=True)
+    base = [child, HERE, "--steps", "60", "--no-images", "--set",
+            f"shards={ranks}"]
     resume = ["--set", "autoResume=1", "--set", "maxRetries=1", "--set",
               "checkpointEvery=20", "--set", "checkpointKeep=0"]
     final, lines = [], []
@@ -4703,7 +4790,9 @@ def main() -> int:
                     "reference", 8, "suite config 3 N=131072",
                     timing=True))),
             ("41 sharded graph windows, one-rank NCCL",
-             phase_sharded_graph_windows)):
+             phase_sharded_graph_windows),
+            ("42 the bench/ runners' counterparts, small",
+             phase_bench_counterparts)):
         t0 = time.perf_counter()
         phase()
         print(f"phase {name}: {time.perf_counter() - t0:.1f} s")

@@ -24,6 +24,8 @@ There is no fallback size: a failure at 1M raises. ``bench.py``'s
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import statistics
 import subprocess
@@ -115,6 +117,32 @@ def time_steps(step, state, cfg, *, steps: int, chunk: int, group=None):
     finally:
         close_runner(runner)
     return final, seconds, capture
+
+
+def run_logged(cfg, dev: torch.device, log_file: str):
+    """``driver.run_simulation(cfg)`` on ``dev``, not quiet, its printed
+    lines (bh knob choices and adapts, JSONL echoes, ``Time taken``)
+    appended to ``log_file`` whether it ends or raises: (its result, those
+    lines)."""
+    from nbodyax_torch.driver import run_simulation
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            res = run_simulation(cfg, device=dev, quiet=False)
+    finally:
+        with open(log_file, "a") as f:
+            f.write(buf.getvalue())
+    return res, buf.getvalue().splitlines()
+
+
+def bh_lines(lines: list) -> dict:
+    """The driver's bh knob choices among its printed ``lines``: the
+    ``bh adapt at step ...`` lines, and the knobs it resolved or adopted
+    from a checkpoint."""
+    return {"adapt_log": [l for l in lines if l.startswith("bh adapt")],
+            "knobs_log": [l for l in lines if l.startswith(
+                ("bh auto-selected", "bhNeighborK auto-selected",
+                 "resumed bh knobs"))]}
 
 
 def spread_keys(seconds: list) -> dict:

@@ -59,6 +59,7 @@ from nbodyax_torch.bench import (close_runner, device_line, launches_since,
                                  window_runner)
 from nbodyax_torch.driver import _copy_state
 from nbodyax_torch.graphs import read_counters
+from nbodyax_torch.metrics import conservation_scalars
 
 
 def _rates(n: int, seconds: list) -> dict:
@@ -144,14 +145,6 @@ def oracle_match(drift: float, floor: float) -> bool:
     return bool(drift < max(10 * floor, 1e-4))
 
 
-def conservation(state) -> dict:
-    """``nbodyax.metrics.conservation_scalars``'s keys, from the port's
-    conservation vector."""
-    from nbodyax_torch.metrics import conservation_vec, scalars_from_vec
-    return scalars_from_vec(conservation_vec(state).cpu(),
-                            state.pos.shape[-1])
-
-
 def conservation_keys(s0: dict, s1: dict) -> dict:
     """``bench/suite.py`` config 2's drift expressions."""
     mom0 = np.hypot(s0["momentum_x"], s0["momentum_y"])
@@ -175,7 +168,8 @@ def config2_elastic_conservation(device, *, n=16384, steps=50, chunk=25):
                                    steps=steps, chunk=chunk)
     line = {"config": 2, "n": state.capacity,
             **_rates(state.capacity, seconds),
-            **conservation_keys(conservation(state), conservation(final))}
+            **conservation_keys(conservation_scalars(state),
+                                conservation_scalars(final))}
     return line, {"start": state, "final": final}
 
 
@@ -197,7 +191,7 @@ def config3_merging_long_horizon(device, *, n=131072, steps=100, chunk=50,
     final, seconds, _ = time_steps(step, a, cfg, steps=steps, chunk=chunk)
     line = {"config": 3, "n": state.capacity,
             **_rates(state.capacity, seconds),
-            "alive_after": conservation(final)["alive"],
+            "alive_after": conservation_scalars(final)["alive"],
             "oracle_alive_agreement_2steps": same_alive,
             "finite": _finite(final)}
     return line, {"start": state, "kernel_2": a, "oracle_2": b,

@@ -16,8 +16,8 @@ import torch
 
 from nbodyax_torch.state import SimState
 
-__all__ = ["conservation_vec", "scalars_from_vec", "potential_energy",
-           "StepMeter", "JsonlLogger"]
+__all__ = ["conservation_vec", "scalars_from_vec", "conservation_scalars",
+           "potential_energy", "StepMeter", "JsonlLogger"]
 
 GRAV_CONSTANT = float(np.float32(6.67408e-11))
 
@@ -44,6 +44,15 @@ def scalars_from_vec(v, dim: int) -> dict:
         out["momentum_z"] = v[5]
     out["sim_time"] = v[-1]
     return out
+
+
+def conservation_scalars(state: SimState) -> dict:
+    """Alive count, total mass, momentum, kinetic energy and simulated time
+    of ``state`` (``nbodyax.metrics.conservation_scalars``'s keys), from
+    one host copy of ``conservation_vec``. The alive count rides the f32
+    vector: exact below 2^24 live bodies."""
+    return scalars_from_vec(conservation_vec(state).cpu(),
+                            state.vel.shape[-1])
 
 
 def potential_energy(state: SimState, eps: float = 0.0) -> torch.Tensor:

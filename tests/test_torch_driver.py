@@ -363,3 +363,103 @@ def test_bh_probes_adapts_and_checkpoints_at_nbodyax_steps(
     dropped = [s for s, drift, drop in causes if drop and not drift]
     assert dropped and set(dropped) & set(t_adapts)
     assert [s for s, drift, drop in causes if drift and not drop]
+
+
+def test_f9_bh_bootstrap_window_at_scale(tmp_path, monkeypatch, one_thread):
+    """Fault F9: nbodyax's bh driver takes a first window of at most
+    BOOTSTRAP_WINDOW_STEPS when its step is fresh (a start, a resume, a
+    compaction's rebuild) at a capacity of 2^20 or more
+    (nbodyax/driver.py:689-691), so its drift probe sees a merger from
+    step 8; the port ran its first window to the first log point. Here the
+    port's threshold is lowered to this run's 1,024 bodies: its first
+    window, started and resumed, is 8 steps, and below the threshold it is
+    the window to the log point, as in nbodyax."""
+    import inspect
+
+    from nbodyax import driver as jdriver
+    assert driver.BOOTSTRAP_WINDOW_STEPS == jdriver.BOOTSTRAP_WINDOW_STEPS
+    assert driver.BOOTSTRAP_MIN_CAPACITY == 1 << 20
+    assert ("state.capacity >= (1 << 20)"
+            in inspect.getsource(jdriver))
+    windows = []
+    advance = driver._EagerWindows.advance
+
+    def spy(self, k, frames):
+        windows.append((self.state.step, k))
+        return advance(self, k, frames)
+
+    monkeypatch.setattr(driver._EagerWindows, "advance", spy)
+    cfg = SimConfig(particle_count=1024, scene="galaxy", softening=100.0,
+                    force_model="bh", total_iterations=25, log_every=25,
+                    checkpoint_every=25, checkpoint_keep=0,
+                    checkpoint_path=str(tmp_path / "ck"), save_images=False)
+    run_simulation(cfg, device="cpu", quiet=True)
+    assert windows[0] == (0, 25)
+    monkeypatch.setattr(driver, "BOOTSTRAP_MIN_CAPACITY", 1024)
+    windows.clear()
+    run_simulation(dataclasses.replace(
+        cfg, checkpoint_path=str(tmp_path / "ck2")), device="cpu", quiet=True)
+    assert windows[0] == (0, driver.BOOTSTRAP_WINDOW_STEPS)
+    assert sum(k for _, k in windows) == 25
+    windows.clear()
+    run_simulation(dataclasses.replace(
+        cfg, total_iterations=50, resume_from=str(
+            tmp_path / "ck2" / "step_000000025.npz")), device="cpu",
+        quiet=True)
+    assert windows[0] == (25, driver.BOOTSTRAP_WINDOW_STEPS)
+
+
+def test_f10_bh_probes_every_step_while_drifting_at_scale(
+        tmp_path, monkeypatch, one_thread):
+    """Fault F10: while a bh run at a capacity of 2^20 or more merges
+    (drift mode), nbodyax's driver probed almost every step, because its
+    wall-clock clip (MAX_WINDOW_SECONDS over a merger step's minute at 4M)
+    cut its windows to one step; the port kept 16-step drift windows and a
+    4M galaxy dropped merges between probes. Here the threshold is lowered
+    to this run's 1,024 bodies (the merging scene of the F5 test above):
+    every window that starts in drift mode is one step long, with a probe
+    after it; below the threshold drift windows are longer, up to
+    nbodyax's 16."""
+    cfg = dataclasses.replace(
+        parse_config_file(os.path.join(ROOT, "examples",
+                                       "galaxy_momentum.txt")),
+        particle_count=1024, total_iterations=60, log_every=25,
+        save_images=False, force_model="bh", bh_near="rows", bh_levels=3,
+        bh_neighbor_k=40)
+    events = []
+    advance, probe = driver._EagerWindows.advance, driver._BhProbe.probe
+
+    def spy_advance(self, k, frames):
+        events.append(("window", self.state.step, k))
+        return advance(self, k, frames)
+
+    def spy_probe(self, c, s, alive_now, at_step, quiet):
+        out = probe(self, c, s, alive_now, at_step, quiet)
+        events.append(("probe", at_step, self.drift_mode))
+        return out
+
+    monkeypatch.setattr(driver._EagerWindows, "advance", spy_advance)
+    monkeypatch.setattr(driver._BhProbe, "probe", spy_probe)
+
+    def drift_windows():
+        events.clear()
+        run_simulation(cfg, device="cpu", quiet=True)
+        drift, probed, out = False, set(), []
+        for kind, step, x in events:
+            if kind == "probe":
+                drift = x
+                probed.add(step)
+            elif drift:
+                out.append((step, x))
+        return out, probed
+
+    below, _ = drift_windows()
+    assert below and max(k for _, k in below) > 1
+    assert max(k for _, k in below) <= driver.DRIFT_WINDOW_STEPS
+    monkeypatch.setattr(driver, "BOOTSTRAP_MIN_CAPACITY", 1024)
+    at_scale, probed = drift_windows()
+    assert len(at_scale) > len(below)
+    assert all(k == driver.SCALE_DRIFT_WINDOW_STEPS == 1
+               for _, k in at_scale)
+    assert all(s + 1 in probed for s, _ in at_scale
+               if s + 1 < cfg.total_iterations)
