@@ -169,7 +169,11 @@ Phases, each of which exits non-zero on failure:
     whether compaction fired, ``Time taken``; a resume from step 10 into a
     checkpoint directory of its own, bitwise equal to the straight run;
 33. three_body, galaxy and plummer in 2-D and 3-D and uniform without
-    parity, 50 steps each, graph against eager bitwise; the default scene
+    parity, 50 steps each, graph against eager bitwise; every scene drawn
+    on the card bitwise the CPU's; nbodyax's fingerprints of suite
+    config 5's 4M galaxy and config 4's 1M uniform scene (mass and radius
+    sums equal, |pos| within 1e-6) and the galaxy's set-up seconds; the
+    default scene
     with ``forceModel=bh compactEvery=50`` for 200 steps: the capacities,
     the knobs re-resolved after each shrink, ``bh_overflow`` 0, B3 and B5
     once a step by replays across the re-captures;
@@ -2181,7 +2185,7 @@ def random_state_3d(n, seed, field=300.0):
 def default_scene_3d(n=None):
     """The built-in config with dimensions=3 (N = 16,384 unless ``n``):
     its config and its scene as numpy arrays (the port's 3-D uniform
-    scene, a torch.Generator draw from the seed)."""
+    scene, nbodyax's jax.random draw)."""
     from nbodyax_torch.config import SimConfig
     from nbodyax_torch.scenes import init_scene
     cfg = SimConfig(dimensions=3)
@@ -2328,7 +2332,7 @@ BH3D_LEVELS, BH3D_S, BH3D_CI = 5, 80, 64    # the 1M 3-D scene's auto knobs
 
 def scene_arrays_of(cfg):
     """The scene of ``cfg`` as numpy arrays (pos, vel, mass, radius); the
-    port's 3-D uniform scene is a torch.Generator draw from the seed."""
+    port's 3-D uniform scene is nbodyax's jax.random draw."""
     from nbodyax_torch.scenes import init_scene
     t0 = time.perf_counter()
     st = init_scene(cfg, device="cpu")
@@ -2751,10 +2755,81 @@ def phase_million_example():
           f"{time_taken(resumed['out'])} s")
 
 
+def scene_fingerprint(arrays):
+    """(mass, radius, |pos|) sums of a scene's numpy arrays, each exactly
+    rounded (``math.fsum``), so any summation order gives the same."""
+    return tuple(math.fsum(np.abs(arrays[k]).astype(np.float64).ravel()
+                           .tolist()) for k in ("mass", "radius", "pos"))
+
+
+# nbodyax's own draw of two full-size scenes (parity=False), as
+# scene_fingerprint reads it, made on the CPU from the repo's root with
+#   JAX_PLATFORMS=cpu python -c "import chip_smoke as c, nbodyax.config as f
+#   import nbodyax.scenes as s, nbodyax.state as t
+#   for kw in c.FINGERPRINT_SCENES.values(): print(repr(c.scene_fingerprint(
+#       t.to_numpy(s.init_scene(f.SimConfig(**kw), parity=False)))))"
+FINGERPRINT_SCENES = {
+    "suite config 5 galaxy N=4194304": dict(particle_count=1 << 22,
+                                            scene="galaxy"),
+    "suite config 4 uniform N=1048576": dict(particle_count=1 << 20),
+}
+NBODYAX_FINGERPRINTS = {
+    "suite config 5 galaxy N=4194304": (
+        2.0972692261161995e+21, 4838882.816135585, 149746405737.98813),
+    "suite config 4 uniform N=1048576": (
+        5.240416690902343e+22, 131000241.76495361, 104860228068.0489),
+}
+
+
+def timed_scene(dev, kw):
+    """(the ``parity=False`` scene of ``SimConfig(**kw)`` on ``dev``, its
+    set-up seconds): ``init_scene`` as the driver times it for
+    ``seconds["scene"]``, fenced."""
+    from nbodyax_torch.config import SimConfig
+    from nbodyax_torch.scenes import init_scene
+    torch.zeros(1, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = init_scene(SimConfig(**kw), device=dev, parity=False)
+    torch.cuda.synchronize()
+    return st, time.perf_counter() - t0
+
+
+def phase_scene_draws(dev):
+    """Every scene at the default size drawn on the card is bitwise the
+    CPU's; the full-size fingerprints equal nbodyax's (mass and radius
+    sums exactly, |pos| within 1e-6: cos and sin may differ by an ulp)."""
+    from nbodyax_torch.config import SimConfig
+    from nbodyax_torch.scenes import init_scene
+    from nbodyax_torch.state import to_numpy
+    for scene in ("three_body", "galaxy", "plummer", "uniform"):
+        for dims in (2, 3):
+            cfg = SimConfig(scene=scene, dimensions=dims)
+            a, b = (init_scene(cfg, device=d, parity=False)
+                    for d in (dev, "cpu"))
+            check(all(torch.equal(x.cpu(), y) for x, y in zip(a[:4], b[:4])),
+                  f"{scene} {dims}-D: the card's draw is not the CPU's")
+    print("scenes drawn on the card and on the CPU: bitwise equal "
+          "(three_body, galaxy, plummer, uniform parity=False; 2-D, 3-D)")
+    for label, kw in FINGERPRINT_SCENES.items():
+        st, seconds = timed_scene(dev, kw)
+        got = scene_fingerprint(to_numpy(st))
+        want = NBODYAX_FINGERPRINTS[label]
+        check(got[:2] == want[:2],
+              f"{label}: mass, radius sums {got[:2]} != nbodyax's {want[:2]}")
+        rel = abs(got[2] - want[2]) / want[2]
+        check(rel <= 1e-6, f"{label}: |pos| sum {got[2]} against nbodyax's "
+                           f"{want[2]}, {rel:.2e} relative")
+        print(f"{label}: set-up {seconds:.3f} s on the card; mass "
+              f"{got[0]!r}, radius {got[1]!r} (nbodyax's, equal), |pos| "
+              f"{got[2]!r} ({rel:.2e} from nbodyax's)")
+
+
 def phase_scenes(dev):
     """three_body, galaxy and plummer in 2-D and 3-D and uniform without
     parity (2-D) for 50 steps of the default config each (a frame every
-    10), graph windows against the eager runner, bitwise."""
+    10), graph windows against the eager runner, bitwise; then the scenes'
+    draws (``phase_scene_draws``)."""
     from nbodyax_torch.config import SimConfig
     from nbodyax_torch.scenes import init_scene
     rows = []
@@ -2773,6 +2848,7 @@ def phase_scenes(dev):
     print(f"scenes, 50 steps, graph vs eager: state, logs and frames "
           f"bitwise equal, B1 50 launches each; alive at the end: "
           f"{', '.join(rows)}")
+    phase_scene_draws(dev)
 
 
 def phase_bh_compaction():

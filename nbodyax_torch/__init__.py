@@ -6,7 +6,8 @@ imports neither it nor JAX. Module names mirror ``nbodyax``:
 
 - ``config``   — SimConfig and the nbodyConfig.txt parser.
 - ``rng``      — the bit-exact reference scene generator; ``native`` — its
-  C++ fill, built with g++ at first use.
+  C++ fill, built with g++ at first use; ``prng`` — ``jax.random``'s
+  threefry draw, bit for bit, for the scenes ``nbodyax`` draws with it.
 - ``state``    — SimState tensors and compaction; ``scenes`` — scene
   constructors (uniform, three_body, galaxy, plummer).
 - ``physics``  — the torch oracle, the CUDA all-pairs kernel and its

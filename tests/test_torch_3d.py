@@ -533,11 +533,24 @@ def test_rollout_grads_match_jax(mode, engine):
 # ---------------------------------------------------------------------------
 
 def test_uniform_scene_3d():
-    """Shapes, ranges and determinism of the port's 3-D uniform scene (a
-    torch.Generator draw, not nbodyax's jax.random bits)."""
-    cfg = SimConfig(particle_count=4096, dimensions=3, field_width=1000,
-                    field_height=600, field_depth=400, seed=9)
+    """Shapes, ranges and determinism of the port's 3-D uniform scene,
+    which is nbodyax's jax.random draw of the same config, bit for bit
+    (and so is another seed's, and fieldDepth 0's)."""
+    from nbodyax import scenes as jscenes
+    from nbodyax.config import SimConfig as JaxConfig
+
+    def nbodyax_scene(**kw):
+        return jstate.to_numpy(jscenes.init_scene(JaxConfig(**kw)))
+
+    def same(st, want):
+        for k in ("pos", "vel", "mass", "radius"):
+            np.testing.assert_array_equal(getattr(st, k).numpy(), want[k])
+
+    kw = dict(particle_count=4096, dimensions=3, field_width=1000,
+              field_height=600, field_depth=400, seed=9)
+    cfg = SimConfig(**kw)
     st = init_scene(cfg, device="cpu")
+    same(st, nbodyax_scene(**kw))
     assert st.pos.shape == (4096, 3) and st.vel.shape == (4096, 3)
     assert st.pos.dtype == torch.float32 and not st.vel.any()
     ext = torch.tensor([1000.0, 600.0, 400.0])
@@ -552,11 +565,13 @@ def test_uniform_scene_3d():
     other = init_scene(SimConfig(particle_count=4096, dimensions=3, seed=10),
                        device="cpu")
     assert not torch.equal(other.pos, st.pos)
+    same(other, nbodyax_scene(particle_count=4096, dimensions=3, seed=10))
     # fieldDepth 0 falls back to fieldWidth
-    wide = init_scene(SimConfig(particle_count=4096, dimensions=3,
-                                field_width=1000, field_height=10),
-                      device="cpu")
+    kw = dict(particle_count=4096, dimensions=3, field_width=1000,
+              field_height=10)
+    wide = init_scene(SimConfig(**kw), device="cpu")
     assert float(wide.pos[:, 2].abs().max()) > 900
+    same(wide, nbodyax_scene(**kw))
 
 
 def test_conservation_scalars_3d():

@@ -2,8 +2,9 @@
 
 The port's CLI (``--device cpu``) writes the same frames, byte for byte,
 as ``nbodyax.cli`` on the same config, runs leapfrog and yoshida4 to
-nbodyax's final state, and logs ``adaptiveDt``'s ``dt_mean`` and
-``energyEvery``'s energies as nbodyax does; the port imports no JAX; and
+nbodyax's final state, logs ``adaptiveDt``'s ``dt_mean`` and
+``energyEvery``'s energies as nbodyax does, and ends the galaxy and
+Plummer scenes on nbodyax's alive count; the port imports no JAX; and
 the config values it does not run yet (autoResume under shards) are
 refused.
 """
@@ -135,8 +136,34 @@ def test_adaptive_dt_and_energy_run_end_to_end(config, tmp_path, capsys,
             np.testing.assert_allclose(g[f], w[f], rtol=1e-5, err_msg=f)
 
 
+@pytest.mark.parametrize("dims", [2, 3])
+@pytest.mark.parametrize("scene", ["galaxy", "plummer"])
+def test_drawn_scenes_end_on_nbodyax_cli(config, tmp_path, capsys, scene,
+                                         dims):
+    """``--set scene=galaxy|plummer`` at 256 bodies for 20 steps, in 2-D
+    and 3-D, through nbodyax.cli and the port's CLI on one config: both
+    start from nbodyax's bodies, so the last log line's alive count is
+    equal and its mass within rtol 1e-6."""
+    lines = {}
+    for name, main, extra in (("jax", jcli.main, ["--quiet"]),
+                              ("torch", tcli.main, ["--device", "cpu"])):
+        log = tmp_path / f"{name}.jsonl"
+        assert main(["--config", str(config), "--no-images", *extra,
+                     "--set", f"scene={scene}", "--set", f"dimensions={dims}",
+                     "--set", "particleCount=256", "--set", "softening=100",
+                     "--set", f"logPath={log}"]) == 0
+        lines[name] = [json.loads(l) for l in log.read_text().splitlines()]
+    capsys.readouterr()
+    got, want = lines["torch"][-1], lines["jax"][-1]
+    assert got["step"] == want["step"] == 20
+    assert got["alive"] == want["alive"]
+    np.testing.assert_allclose(got["total_mass"], want["total_mass"],
+                               rtol=1e-6)
+
+
 def test_port_imports_no_jax():
     code = ("import sys, nbodyax_torch, nbodyax_torch.cli, "
+            "nbodyax_torch.prng, nbodyax_torch.scenes, "
             "nbodyax_torch.physics.kernels, nbodyax_torch.driver, "
             "nbodyax_torch.physics.kernels_bwd, nbodyax_torch.autodiff, "
             "nbodyax_torch.physics.barneshut; "

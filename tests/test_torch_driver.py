@@ -300,7 +300,7 @@ def test_bh_probes_adapts_and_checkpoints_at_nbodyax_steps(
     every window that ends off the log cadence while it drifts or once its
     live count fell by more than 0.5%, and drift mode clips windows to 16
     steps, as nbodyax's driver does. examples/galaxy_momentum.txt cut to
-    1,024 bodies and 80 steps, with the rows engine at a K that the merger
+    2,048 bodies and 80 steps, with the rows engine at a K that the merger
     outgrows: both drivers run the same windows, probe, adapt and save
     checkpoints at the same steps, and the port's probes include one off
     the log cadence from a drop in the live count alone (it adapts there)
@@ -308,7 +308,7 @@ def test_bh_probes_adapts_and_checkpoints_at_nbodyax_steps(
     cfg = dataclasses.replace(
         parse_config_file(os.path.join(ROOT, "examples",
                                        "galaxy_momentum.txt")),
-        particle_count=1024, total_iterations=80, log_every=25,
+        particle_count=2048, total_iterations=80, log_every=25,
         checkpoint_every=16, checkpoint_keep=0, auto_resume=False,
         save_images=False, force_model="bh", bh_near="rows", bh_levels=3,
         bh_neighbor_k=40)
@@ -416,14 +416,14 @@ def test_f10_bh_probes_every_step_while_drifting_at_scale(
     wall-clock clip (MAX_WINDOW_SECONDS over a merger step's minute at 4M)
     cut its windows to one step; the port kept 16-step drift windows and a
     4M galaxy dropped merges between probes. Here the threshold is lowered
-    to this run's 1,024 bodies (the merging scene of the F5 test above):
+    to this run's 2,048 bodies (the merging scene of the F5 test above):
     every window that starts in drift mode is one step long, with a probe
     after it; below the threshold drift windows are longer, up to
     nbodyax's 16."""
     cfg = dataclasses.replace(
         parse_config_file(os.path.join(ROOT, "examples",
                                        "galaxy_momentum.txt")),
-        particle_count=1024, total_iterations=60, log_every=25,
+        particle_count=2048, total_iterations=60, log_every=25,
         save_images=False, force_model="bh", bh_near="rows", bh_levels=3,
         bh_neighbor_k=40)
     events = []
@@ -456,7 +456,7 @@ def test_f10_bh_probes_every_step_while_drifting_at_scale(
     below, _ = drift_windows()
     assert below and max(k for _, k in below) > 1
     assert max(k for _, k in below) <= driver.DRIFT_WINDOW_STEPS
-    monkeypatch.setattr(driver, "BOOTSTRAP_MIN_CAPACITY", 1024)
+    monkeypatch.setattr(driver, "BOOTSTRAP_MIN_CAPACITY", 2048)
     at_scale, probed = drift_windows()
     assert len(at_scale) > len(below)
     assert all(k == driver.SCALE_DRIFT_WINDOW_STEPS == 1

@@ -1,16 +1,18 @@
 """nbodyax_torch's scenes against nbodyax's, on the CPU, in 2-D and 3-D.
 
 ``three_body`` is a fixed fixture: bit for bit nbodyax's (tolerance:
-none). ``galaxy``, ``plummer`` and ``uniform`` without parity draw from a
-``torch.Generator`` where nbodyax draws from ``jax.random``, so they are
-held to nbodyax by structure and statistics: tests/test_scenes.py's bounds
-(the Plummer tail at 5a (1 + 1e-5), speeds under v_esc (1 + 1e-5), the
-median radius within (1.0 a, 1.5 a), the 3-D virial ratio within
-(0.75, 1.15)), the disks' circular speeds to rtol 1e-5 of sqrt(G M_c / r),
-and the same ranges as nbodyax's scene of the same config. Then a few
-steps of each scene from nbodyax's state carried across, against nbodyax's
-step: alive masks exact, mass to rtol 1e-6, positions within 2e-4 of the
-field (the golden gates).
+none). ``galaxy``, ``plummer`` and ``uniform`` without parity are
+nbodyax's own ``jax.random`` bodies: the port draws them from nbodyax's key
+tree with jax.random's bits (``nbodyax_torch.prng``). Gates: the draws
+themselves (masses, radii, uniform positions, the galaxy's z scatter)
+bitwise; values through cos, sin, sqrt of a quotient or pow within 2e-7
+of the largest |value| of their array; five steps from each package's own
+scene within the golden gates (alive masks exact, mass to rtol 1e-6,
+positions within 2e-4 of the field). The structure and statistics tests
+stay: tests/test_scenes.py's bounds (the Plummer tail at 5a (1 + 1e-5),
+speeds under v_esc (1 + 1e-5), the median radius within (1.0 a, 1.5 a),
+the 3-D virial ratio within (0.75, 1.15)) and the disks' circular speeds
+to rtol 1e-5 of sqrt(G M_c / r).
 """
 
 import numpy as np
@@ -211,3 +213,60 @@ def test_scene_steps_match_nbodyax(scene, dim):
     np.testing.assert_allclose(got["mass"], want["mass"], rtol=1e-6)
     np.testing.assert_allclose(got["pos"][alive], want["pos"][alive],
                                rtol=0, atol=2e-4 * cfg.field_width)
+
+
+def f32_bits(x: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(x, np.float32).view(np.int32)
+
+
+@pytest.mark.parametrize("scene", ["galaxy", "plummer", "uniform"])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_scene_is_nbodyax_own(scene, dim):
+    """The port's scene is nbodyax's for the same config (uniform without
+    parity): the draws bitwise, positions and velocities within 2e-7 of
+    their largest |value|, and five momentum-mode steps from each
+    package's own scene within the golden gates."""
+    kw = dict(particle_count=4096, scene=scene, dimensions=dim,
+              softening=100.0, collision_mode="momentum")
+    jcfg, cfg = JaxConfig(**kw), SimConfig(**kw)
+    j = jscenes.init_scene(jcfg, parity=False)
+    t = scenes.init_scene(cfg, device="cpu", parity=False)
+    got, want = to_numpy(t), jstate.to_numpy(j)
+    for k in ("mass", "radius"):
+        np.testing.assert_array_equal(f32_bits(got[k]), f32_bits(want[k]))
+    if scene == "uniform":
+        np.testing.assert_array_equal(f32_bits(got["pos"]),
+                                      f32_bits(want["pos"]))
+    if scene == "galaxy" and dim == 3:
+        np.testing.assert_array_equal(f32_bits(got["pos"][:, 2]),
+                                      f32_bits(want["pos"][:, 2]))
+    for k in ("pos", "vel"):
+        scale = max(float(np.abs(want[k]).max()), 1e-30)
+        err = np.abs(got[k].astype(np.float64) - want[k]).max() / scale
+        assert err <= 2e-7, (k, err)
+
+    jstep = jax_make_step(JaxParams.from_config(jcfg))
+    step = make_step(PhysicsParams.from_config(cfg))
+    for _ in range(5):
+        j, t = jstep(j), step(t)
+    want, got = jstate.to_numpy(j), to_numpy(t)
+    alive = want["mass"] > 0
+    assert alive.any()
+    np.testing.assert_array_equal(got["mass"] > 0, alive)
+    np.testing.assert_allclose(got["mass"], want["mass"], rtol=1e-6)
+    np.testing.assert_allclose(got["pos"][alive], want["pos"][alive],
+                               rtol=0, atol=2e-4 * cfg.field_width)
+
+
+def test_powf_matches_jnp_power():
+    """The Plummer scene's float32 powers, bit for bit ``jnp``'s on the
+    CPU, over the radii's and speeds' ranges and beyond."""
+    import jax.numpy as jnp
+    rs = np.random.RandomState(3)
+    x = np.concatenate([rs.uniform(1e-6, 1.0, 1 << 16),
+                        10.0 ** rs.uniform(-30, 30, 1 << 16),
+                        [1.0, 2.0, 0.5, 1e-6, 0.943]]).astype(np.float32)
+    for y in (-2.0 / 3.0, -0.25):
+        got = scenes._powf(torch.from_numpy(x), y).numpy()
+        want = np.asarray(jnp.asarray(x) ** y)
+        np.testing.assert_array_equal(f32_bits(got), f32_bits(want))
