@@ -101,6 +101,13 @@ def close_runner(runner) -> None:
         runner.close()
 
 
+def capture_seconds(runner) -> float:
+    """Seconds a graph runner has spent warming up and capturing its graphs
+    (its recorder's ``capture`` spans); 0 for the eager runner."""
+    rec = getattr(runner, "rec", None)
+    return rec.seconds.get("capture", 0.0) if rec is not None else 0.0
+
+
 def time_steps(step, state, cfg, *, steps: int, chunk: int, group=None):
     """``bench/suite.py``'s ``_time_steps`` on the driver's runner: one warm
     window of ``chunk`` steps (a graph's capture included), then windows of
@@ -113,7 +120,7 @@ def time_steps(step, state, cfg, *, steps: int, chunk: int, group=None):
         time_windows(runner, chunk, 1)
         seconds = time_windows(runner, chunk, -(-steps // chunk))
         final = _copy_state(runner.state if group is None else runner.full)
-        capture = getattr(runner, "capture_seconds", 0.0)
+        capture = capture_seconds(runner)
     finally:
         close_runner(runner)
     return final, seconds, capture

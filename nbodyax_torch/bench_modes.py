@@ -36,8 +36,8 @@ import sys
 
 import torch
 
-from nbodyax_torch.bench import (close_runner, device_line, launches_since,
-                                 time_windows, window_runner)
+from nbodyax_torch.bench import (capture_seconds, close_runner, device_line,
+                                 launches_since, time_windows, window_runner)
 from nbodyax_torch.bench_suite import _finite, _rates
 from nbodyax_torch.graphs import read_counters
 
@@ -59,7 +59,7 @@ def run_mode(mode: str, n: int, reps: int, dev: torch.device) -> dict:
         (warm,) = time_windows(runner, 1, 1)
         seconds = time_windows(runner, 1, reps)
         finite = _finite(runner.state)
-        capture = getattr(runner, "capture_seconds", 0.0)
+        capture = capture_seconds(runner)
     finally:
         close_runner(runner)
     return {"mode": mode, "n": n, **_rates(n, seconds), "compile_s": warm,

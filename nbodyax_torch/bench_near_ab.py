@@ -36,8 +36,9 @@ import sys
 
 import torch
 
-from nbodyax_torch.bench import (close_runner, device_line, launches_since,
-                                 spread_keys, time_windows, window_runner)
+from nbodyax_torch.bench import (capture_seconds, close_runner, device_line,
+                                 launches_since, spread_keys, time_windows,
+                                 window_runner)
 from nbodyax_torch.bench_suite import _finite, _knobs
 from nbodyax_torch.graphs import read_counters
 
@@ -65,8 +66,7 @@ def run(scene: str, reps: int, dim: int, n: int, dev: torch.device):
                                           1)
             (warm,) = time_windows(runners[near], 1, 1)
             per[near] = {"knobs": _knobs(cfg), "warm_s": warm,
-                         "capture_s": getattr(runners[near],
-                                              "capture_seconds", 0.0),
+                         "capture_s": capture_seconds(runners[near]),
                          "seconds": [], "launches": launches_since(before)}
         for _ in range(reps):
             for near in ENGINES:

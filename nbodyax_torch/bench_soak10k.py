@@ -23,9 +23,9 @@ softening 100, reference merging, ``forceModel=bh`` with auto knobs.
 
 Each stage appends its record (``stage_from``, ``stage_to``, ``wall_s``,
 ``steps_per_sec``, ``finite``, ``windows``, the conservation scalars, the
-host seconds by part, the capacities after each compaction, the bh knobs
-the driver chose and each of its ``bh adapt`` lines, each kernel's
-launches and the device: on a card its name and power limit) to
+host seconds by part and counts, the capacities after each compaction,
+the bh knobs the driver chose and each of its ``bh adapt`` lines, each
+kernel's launches and the device: on a card its name and power limit) to
 ``stages.jsonl`` and prints it; the driver's printed lines go to
 ``run.log`` in the work directory. When the state reaches ``--total`` (or
 with ``--partial-ok``) ``summarize`` turns the JSONL into one record with
@@ -101,7 +101,8 @@ def run_stage(n: int, until: int, workdir: str, dev: torch.device, **kw):
              "wall_s": time.perf_counter() - t0,
              "steps_per_sec": res.steps_per_sec, "finite": _finite(res.state),
              "windows": res.windows, **conservation_scalars(res.state),
-             "seconds": res.seconds, "capacities": res.capacities,
+             "seconds": res.seconds, "counts": res.counts,
+             "capacities": res.capacities,
              **bh_lines(lines), "launches": launches_since(before),
              "device": device_line(dev)}
     with open(os.path.join(workdir, "stages.jsonl"), "a") as f:

@@ -15,10 +15,11 @@ output goes to ``run.log`` in the work directory (a temporary one by
 default), its JSONL to ``soak.jsonl`` there.
 
 Prints one JSON line (``record``): ``bench/soak_adapt.py``'s keys, each
-log point's ``bh_overflow``, the run's host seconds by part, each
-kernel's launches and the device (on a card its name and power limit);
-then ``check_bounds`` holds ``nbodyax``'s three bounds and raises on a
-broken one: at least 2 adapts (the self-tuning engaged), fewer than 12
+log point's ``bh_overflow``, the run's host seconds by part and its
+counts (windows, probes, adapts, captures, ...), each kernel's launches
+and the device (on a card its name and power limit); then
+``check_bounds`` holds ``nbodyax``'s three bounds and raises on a broken
+one: at least 2 adapts (the self-tuning engaged), fewer than 12
 (each one costs a capture), and at least 3 trailing log points with
 ``bh_overflow`` 0 (once the collapse settles, the last adapt restores
 exactness and holds it). ``--device cpu`` runs N = 4,096: the bounds are
@@ -99,7 +100,8 @@ def run(n: int, steps: int, log_every: int, dt: float, workdir: str,
     knobs = bh_lines(lines)
     return record(rows, knobs["adapt_log"], n=n, steps=steps,
                   steps_per_sec=res.steps_per_sec, wall_s=wall,
-                  seconds=res.seconds, capacities=res.capacities,
+                  seconds=res.seconds, counts=res.counts,
+                  capacities=res.capacities,
                   knobs_log=knobs["knobs_log"],
                   launches=launches_since(before), device=device_line(dev))
 

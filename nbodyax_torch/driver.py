@@ -29,12 +29,22 @@ A window's conservation vector is fetched once, at its end: the fetch is
 the window's fence and the log line's payload. Checkpoints, compaction and
 bh probes all run after that fence, between windows, so the capacity never
 changes inside a window. ``StepMeter`` times each window on the device's
-clock, and a log line's ``wall_ms`` is that window's time a step.
+clock, and a log line's ``wall_ms`` is that window's time a step: the graph
+a window replays is captured before its meter starts (``prepare``), so the
+meter times replays only.
 ``adaptiveDt`` adds ``dt_mean`` (the mean dt since the last log line) and
 ``energyEvery`` the O(N^2) ``potential_energy`` and ``total_energy`` at its
 cadence, with nbodyax's names. ``debug_nans`` tests each window's outputs
 for NaN after its fence and, on a hit, re-runs the window eagerly a step at
 a time to name the first step (``FloatingPointError``).
+
+**Spans and counters** (``tracing.Recorder``, one an attempt): the run's
+parts are spans (``run``, ``scene``, ``knobs``, ``runner``, ``window`` with
+``capture`` inside it, ``frames``, ``probe``, ``log``, ``checkpoint``,
+``compaction``, ``graph_free``), whose self seconds become
+``RunResult.seconds``, and its counters (windows, replays, captures,
+probes, adapts, ...) ``RunResult.counts``. Under a ``torch.profiler`` (the
+CLI's ``--profile``) each span is also a host event ``nbodyax.<span>``.
 
 **Checkpoints** (``checkpointEvery``; ``io/checkpoint.py``'s files, which
 both packages read) carry the resolved bh knobs (``_bh_ck_extra``), and a
@@ -142,6 +152,7 @@ from nbodyax_torch.render import FrameWriteError, FrameWriter, render_state
 from nbodyax_torch.scenes import init_scene
 from nbodyax_torch.state import (SimState, compact_state, make_state,
                                  shrink_due)
+from nbodyax_torch.tracing import Recorder
 
 __all__ = ["run_simulation", "RunResult", "resolve_device",
            "resolve_bh_config", "build_step", "GraphCaptureError"]
@@ -161,12 +172,18 @@ class RunResult:
     pairs_per_sec: float
     wall_seconds: float
     frames_written: int
-    windows: int = 0        # windows run (scheduler diagnostics)
-    # host seconds of the run's parts: scene (or checkpoint load), capture
-    # (graph warm-ups and captures), windows (the steps, to each window's
-    # fence, captures excluded), frames (queueing and the writer's drain),
-    # checkpoints, compaction
+    windows: int = 0        # windows run (``counts["windows"]``)
+    # host seconds of the run's parts, each span's self time (``tracing``):
+    # run (the rest), scene (draw or checkpoint load), knobs (bh knob
+    # resolution), runner (step build and runner), windows (the steps, to
+    # each window's fence), capture (graph warm-ups and captures), frames
+    # (queueing and the writer's drain), probe (bh_health and the adapt
+    # ladder), log (scalars, energy, the log line), checkpoints, compaction
+    # (the gather and its decisions), graph_free (graphs and pools let go)
     seconds: dict = dataclasses.field(default_factory=dict)
+    # the run's counters (``tracing``): windows, one_step_windows, replays,
+    # captures, graphs_freed, probes, adapts, compactions, checkpoints
+    counts: dict = dataclasses.field(default_factory=dict)
     # capacity after each compaction that changed it: [(step, capacity)]
     capacities: list = dataclasses.field(default_factory=list)
     shards: int = 1         # ranks the bodies were sharded over
@@ -449,6 +466,9 @@ class _EagerWindows:
     def __init__(self, step, state: SimState, cfg: SimConfig, k_img: int):
         self.step, self.state, self.cfg, self.k_img = step, state, cfg, k_img
 
+    def prepare(self, k: int, frames: bool) -> None:
+        """Nothing to make before a window: the steps run as called."""
+
     def advance(self, k: int, frames: bool):
         """Run k steps; returns (conservation vec, [(iteration, frame,
         ready event or None)])."""
@@ -513,32 +533,42 @@ class _GraphWindows:
     and every replay adds them again (no counted kernel runs inside an IF
     body). Warm-up and capture themselves count nothing. Every graph and
     buffer has the capacity and the step of the runner; ``close`` drops
-    them all.
+    them all. ``prepare`` captures what the next window will replay, so
+    that a window's meter times replays only; ``advance`` captures a
+    missing graph itself. ``rec`` (the run's ``tracing.Recorder``, else
+    one of the runner's own) takes the ``capture`` spans and the
+    ``captures``, ``replays`` and ``graphs_freed`` counts.
     """
 
     def __init__(self, step, state: SimState, cfg: SimConfig, k_img: int,
-                 stride: int, writer: Optional[FrameWriter]):
+                 stride: int, writer: Optional[FrameWriter],
+                 rec: Optional[Recorder] = None):
         self.step, self.cfg, self.k_img = step, cfg, k_img
         self.stride, self.writer = stride, writer
+        self.rec = rec if rec is not None else Recorder()
         self.stride_graph = cfg.force_model != "bh"
         self.buf = SimState(
             *(t.clone(memory_format=torch.contiguous_format)
               for t in state[:4]), state.step, state.sim_time.clone())
         self.graphs = {}
-        self.capture_seconds = 0.0
         # (window size, frames) -> (the graph's nodes with an IF node as
         # one, IF nodes, nodes inside their bodies): diagnostics
         self.nodes = {}
+
+    def free_graphs(self) -> None:
+        """Destroy every graph and release its IF bodies' pool."""
+        bodies = [g[4] for g in self.graphs.values()]
+        self.rec.count("graphs_freed", len(bodies))
+        self.graphs.clear()
+        for b in bodies:
+            b.release()
 
     def close(self) -> None:
         """Drop every graph, static buffer and frame buffer, and hand the
         graphs' private memory pools back to the card before another
         runner captures: a dropped graph's pool is only marked freeable,
         and the allocator would keep it reserved beside the next one."""
-        bodies = [g[4] for g in self.graphs.values()]
-        self.graphs.clear()
-        for b in bodies:
-            b.release()
+        self.free_graphs()
         self.buf = None
         torch.cuda.empty_cache()
 
@@ -617,14 +647,28 @@ class _GraphWindows:
         # the IF bodies' pool lives as long as the graph
         return graph, vec, fbuf, delta, bodies
 
-    def _replay(self, k: int, frames: bool):
-        key = (k, frames)
+    def _key(self, k: int, frames: bool):
+        """The (size, frames) of the graph a k-step window replays: the
+        stride's, with frames from a frame boundary, else the one-step
+        graph."""
+        if k == self.stride and self.stride_graph:
+            return k, frames and self.buf.step % self.k_img == 0
+        return 1, False
+
+    def prepare(self, k: int, frames: bool) -> None:
+        """Capture the graph that a k-step window will replay, if there
+        is none yet."""
+        key = self._key(k, frames)
         if key not in self.graphs:
-            t0 = time.perf_counter()
-            self.graphs[key] = self._capture(k, frames)
-            self.capture_seconds += time.perf_counter() - t0
-        graph, vec, fbuf, delta, _ = self.graphs[key]
+            with self.rec.span("capture"):
+                self.graphs[key] = self._capture(*key)
+            self.rec.count("captures")
+
+    def _replay(self, k: int, frames: bool):
+        self.prepare(k, frames)
+        graph, vec, fbuf, delta, _ = self.graphs[k, frames]
         graph.replay()
+        self.rec.count("replays")
         add_counts(delta)
         return vec, fbuf
 
@@ -635,7 +679,7 @@ class _GraphWindows:
         i0 = self.buf.step
         out = []
         if k == self.stride and self.stride_graph:
-            frames = frames and i0 % self.k_img == 0
+            frames = self._key(k, frames)[1]
             vec, fbuf = self._replay(k, frames)
             if fbuf is not None:
                 # the next replay overwrites fbuf: copy it out now, into
@@ -683,10 +727,11 @@ class _ShardedGraphWindows(_GraphWindows):
     step and a gather eagerly on every rank."""
 
     def __init__(self, step, full: SimState, cfg: SimConfig, k_img: int,
-                 stride: int, writer: Optional[FrameWriter], group):
+                 stride: int, writer: Optional[FrameWriter], group,
+                 rec: Optional[Recorder] = None):
         from nbodyax_torch.sharding import shard_state
         super().__init__(step, shard_state(full, group), cfg, k_img, stride,
-                         writer)
+                         writer, rec)
         self.group = group
         self.full = SimState(
             *(t.clone(memory_format=torch.contiguous_format)
@@ -854,10 +899,40 @@ def _mark_not_retried(cfg: SimConfig, e: BaseException) -> None:
     os.replace(tmp, mark)
 
 
+# ``RunResult.seconds``'s key for each span whose key is not its name
+_SECONDS_KEY = {"window": "windows", "checkpoint": "checkpoints"}
+_SECONDS_KEYS = ("run", "scene", "knobs", "runner", "windows", "capture",
+                 "frames", "probe", "log", "checkpoints", "compaction",
+                 "graph_free")
+_COUNT_KEYS = ("windows", "one_step_windows", "replays", "captures",
+               "graphs_freed", "probes", "adapts", "compactions",
+               "checkpoints")
+
+
 def _run_simulation_once(cfg: SimConfig, dev: torch.device, *, quiet: bool,
                          state: Optional[SimState],
                          profile_dir: Optional[str], debug_nans: bool,
                          eager: bool, group=None) -> RunResult:
+    """One attempt, in a ``run`` span of its own recorder, whose self
+    seconds and counts become the result's ``seconds`` and ``counts``."""
+    rec = Recorder()
+    with rec.span("run"):
+        res = _attempt(rec, cfg, dev, quiet=quiet, state=state,
+                       profile_dir=profile_dir, debug_nans=debug_nans,
+                       eager=eager, group=group)
+    res.seconds = dict.fromkeys(_SECONDS_KEYS, 0.0)
+    for name, s in rec.seconds.items():
+        res.seconds[_SECONDS_KEY.get(name, name)] = s
+    res.counts = dict.fromkeys(_COUNT_KEYS, 0)
+    res.counts.update(rec.counts)
+    res.windows = res.counts["windows"]
+    return res
+
+
+def _attempt(rec: Recorder, cfg: SimConfig, dev: torch.device, *,
+             quiet: bool, state: Optional[SimState],
+             profile_dir: Optional[str], debug_nans: bool, eager: bool,
+             group=None) -> RunResult:
     t_start = time.perf_counter()
     # the bh knobs the user left auto, before any adoption or resolution:
     # compaction may re-pick these and only these
@@ -865,8 +940,6 @@ def _run_simulation_once(cfg: SimConfig, dev: torch.device, *, quiet: bool,
                   "bh_near": cfg.bh_near == "auto",
                   "bh_neighbor_k": cfg.bh_neighbor_k == 0,
                   "bh_comp_cap": cfg.bh_comp_cap == 0}
-    seconds = dict.fromkeys(("scene", "capture", "windows", "frames",
-                             "checkpoints", "compaction"), 0.0)
     if cfg.shards > 1 or group is not None:
         from nbodyax_torch.sharding import make_group, pad_to_shards
         group = group or make_group(cfg.shards, dev)
@@ -874,22 +947,25 @@ def _run_simulation_once(cfg: SimConfig, dev: torch.device, *, quiet: bool,
     # rank 0 alone prints, logs, profiles and writes frames and checkpoints
     root = group is None or group.rank == 0
     quiet = quiet or not root
-    if state is None:
-        if cfg.resume_from:
-            state = load_checkpoint(cfg.resume_from, device=dev)
-            cfg = _adopt_ck_knobs(cfg, cfg.resume_from, quiet=quiet)
-            if not quiet:
-                print(f"Resumed from {cfg.resume_from} at step {state.step}")
+    with rec.span("scene"):
+        if state is None:
+            if cfg.resume_from:
+                state = load_checkpoint(cfg.resume_from, device=dev)
+                cfg = _adopt_ck_knobs(cfg, cfg.resume_from, quiet=quiet)
+                if not quiet:
+                    print(f"Resumed from {cfg.resume_from} at step "
+                          f"{state.step}")
+            else:
+                state = init_scene(cfg, device=dev)
         else:
-            state = init_scene(cfg, device=dev)
-    else:
-        state = make_state(*state[:4], step=int(state.step),
-                           sim_time=float(state.sim_time), device=dev)
-    if group is not None:
-        # every rank holds the same whole state; the runner keeps its rows
-        state = pad_to_shards(state, group.size)
-    seconds["scene"] = time.perf_counter() - t_start
-    cfg = resolve_bh_config(cfg, state, quiet=quiet)
+            state = make_state(*state[:4], step=int(state.step),
+                               sim_time=float(state.sim_time), device=dev)
+        if group is not None:
+            # every rank holds the same whole state; the runner keeps its
+            # rows
+            state = pad_to_shards(state, group.size)
+    with rec.span("knobs"):
+        cfg = resolve_bh_config(cfg, state, quiet=quiet)
     bh = cfg.force_model == "bh"
 
     meter = StepMeter(state.capacity, dev)
@@ -902,45 +978,48 @@ def _run_simulation_once(cfg: SimConfig, dev: torch.device, *, quiet: bool,
 
     def new_runner(c: SimConfig, s: SimState):
         """The runner of the step of ``c`` from the whole state ``s``."""
-        if group is not None:
+        with rec.span("runner"):
+            if group is not None:
+                if runner_class is _GraphWindows:
+                    return _ShardedGraphWindows(build_step(c, dev, group), s,
+                                                c, k_img, sched.stride,
+                                                writer, group, rec)
+                return _ShardedWindows(build_step(c, dev, group), s, c,
+                                       k_img, group)
             if runner_class is _GraphWindows:
-                return _ShardedGraphWindows(build_step(c, dev, group), s, c,
-                                            k_img, sched.stride, writer,
-                                            group)
-            return _ShardedWindows(build_step(c, dev, group), s, c, k_img,
-                                   group)
-        if runner_class is _GraphWindows:
-            return _GraphWindows(build_step(c, dev), s, c, k_img,
-                                 sched.stride, writer)
-        return _EagerWindows(build_step(c, dev), s, c, k_img)
+                return _GraphWindows(build_step(c, dev), s, c, k_img,
+                                     sched.stride, writer, rec)
+            return _EagerWindows(build_step(c, dev), s, c, k_img)
 
     def drop_runner(r) -> None:
         """Let a graph runner go: its graphs and their pools."""
         if isinstance(r, _GraphWindows):
-            if writer is not None:
-                writer.drain()
-            seconds["capture"] += r.capture_seconds
-            r.close()
+            with rec.span("graph_free"):
+                if writer is not None:
+                    writer.drain()
+                r.close()
 
     def adapt(c: SimConfig):
         """Step with the knobs a bh probe chose: a new step, and on a card
         a new runner, captured at its first window."""
         nonlocal runner
+        rec.count("adapts")
         if isinstance(runner, _GraphWindows):
             old, runner = runner, new_runner(c, whole())
             drop_runner(old)
         else:
-            runner.step = build_step(c, dev, group)
+            with rec.span("runner"):
+                runner.step = build_step(c, dev, group)
         return c
 
     def checkpoint(s: SimState):
-        t0 = time.perf_counter()
-        if root:
-            save_checkpoint(cfg.checkpoint_path, s,
-                            keep_last=cfg.checkpoint_keep,
-                            milestone_every=cfg.checkpoint_milestone_every,
-                            extra=_bh_ck_extra(cfg))
-        seconds["checkpoints"] += time.perf_counter() - t0
+        with rec.span("checkpoint"):
+            rec.count("checkpoints")
+            if root:
+                save_checkpoint(cfg.checkpoint_path, s,
+                                keep_last=cfg.checkpoint_keep,
+                                milestone_every=cfg.checkpoint_milestone_every,
+                                extra=_bh_ck_extra(cfg))
 
     def whole() -> SimState:
         """The whole state after the last window, on every rank."""
@@ -950,7 +1029,7 @@ def _run_simulation_once(cfg: SimConfig, dev: torch.device, *, quiet: bool,
     # without bhAdapt the probe only reads bh_health and never drifts
     probe = _BhProbe(float((state.mass > 0).sum())) if bh else None
     pairs_key = "equivalent_pairs_per_sec" if bh else "pairs_per_sec"
-    frames = windows = 0
+    frames = 0
     capacities = []
     prev_sim_time, prev_log_iter = float(state.sim_time), state.step
     last_ck_step = state.step
@@ -979,59 +1058,67 @@ def _run_simulation_once(cfg: SimConfig, dev: torch.device, *, quiet: bool,
                         else DRIFT_WINDOW_STEPS)
             if k_img and iteration % k_img == 0 and k >= k_img:
                 k -= k % k_img   # frame windows stay frame-aligned
-            windows += 1
+            rec.count("windows")
+            if k == 1:
+                rec.count("one_step_windows")
             start = _copy_state(runner.state) if debug_nans else None
-            t0 = time.perf_counter()
-            meter.start()
-            vec, imgs = runner.advance(k, k_img > 0)
-            win_wall = meter.stop(k)
-            v = vec.cpu()
-            seconds["windows"] += time.perf_counter() - t0
+            with rec.span("window"):
+                # the window's graph exists before its meter starts
+                runner.prepare(k, k_img > 0)
+                meter.start()
+                vec, imgs = runner.advance(k, k_img > 0)
+                win_wall = meter.stop(k)
+                v = vec.cpu()
             state = whole()
             if debug_nans and _nan_fields(state, vec):
                 _raise_first_nan(runner.step, start, k,
                                  None if group is None else runner.gather)
-            t0 = time.perf_counter()
-            for it, img, ready in imgs:
-                writer.submit(it, img, ready)
-            seconds["frames"] += time.perf_counter() - t0
+            if imgs:
+                with rec.span("frames"):
+                    for it, img, ready in imgs:
+                        writer.submit(it, img, ready)
             frames += len(imgs)
             iteration += k
             alive_now = float(v[0])
             log_due = cfg.log_every and iteration % cfg.log_every == 0
-            if (probe is not None and cfg.bh_adapt and not log_due
-                    and iteration < cfg.total_iterations
-                    and (probe.drift_mode or probe.dropping(alive_now))):
-                # off the log cadence: probe while the run merges fast
-                _, new_cfg = probe.probe(cfg, state, alive_now, iteration,
-                                         quiet)
+            if probe is not None and (
+                    log_due or (cfg.bh_adapt
+                                and iteration < cfg.total_iterations
+                                and (probe.drift_mode
+                                     or probe.dropping(alive_now)))):
+                # at each log point, and off the log cadence while the run
+                # merges fast
+                with rec.span("probe"):
+                    rec.count("probes")
+                    h, new_cfg = probe.probe(cfg, state, alive_now,
+                                             iteration, quiet)
                 if new_cfg is not cfg:
                     cfg = adapt(new_cfg)
             if log_due:
-                scal = scalars_from_vec(v, cfg.dimensions)
-                if cfg.adaptive_dt:
-                    # the mean dt since the last log line: sim_time
-                    # telescopes the per-step dts the windows do not report
-                    scal["dt_mean"] = ((scal["sim_time"] - prev_sim_time)
-                                       / max(iteration - prev_log_iter, 1))
-                prev_sim_time, prev_log_iter = scal["sim_time"], iteration
-                if probe is not None:
-                    h, new_cfg = probe.probe(cfg, state, scal["alive"],
-                                             iteration, quiet)
-                    if new_cfg is not cfg:
-                        cfg = adapt(new_cfg)
-                    scal["bh_overflow"] = int(h[0] + h[1])
-                    scal["bh_giant_excess"] = int(h[6])
-                if (cfg.energy_every and iteration % cfg.energy_every == 0
-                        and root):
-                    # O(N^2), as dear as a force pass: at its own cadence
-                    pe = float(potential_energy(state, eps=cfg.softening))
-                    scal["potential_energy"] = pe
-                    scal["total_energy"] = pe + scal["kinetic_energy"]
-                logger.log(step=iteration, wall_ms=win_wall / k * 1e3,
-                           steps_per_sec=meter.steps_per_sec,
-                           force_model=cfg.force_model,
-                           **{pairs_key: meter.pairs_per_sec}, **scal)
+                with rec.span("log"):
+                    scal = scalars_from_vec(v, cfg.dimensions)
+                    if cfg.adaptive_dt:
+                        # the mean dt since the last log line: sim_time
+                        # telescopes the per-step dts the windows do not
+                        # report
+                        scal["dt_mean"] = (
+                            (scal["sim_time"] - prev_sim_time)
+                            / max(iteration - prev_log_iter, 1))
+                    prev_sim_time, prev_log_iter = scal["sim_time"], iteration
+                    if probe is not None:
+                        scal["bh_overflow"] = int(h[0] + h[1])
+                        scal["bh_giant_excess"] = int(h[6])
+                    if (cfg.energy_every
+                            and iteration % cfg.energy_every == 0 and root):
+                        # O(N^2), as dear as a force pass: at its own
+                        # cadence
+                        pe = float(potential_energy(state, eps=cfg.softening))
+                        scal["potential_energy"] = pe
+                        scal["total_energy"] = pe + scal["kinetic_energy"]
+                    logger.log(step=iteration, wall_ms=win_wall / k * 1e3,
+                               steps_per_sec=meter.steps_per_sec,
+                               force_model=cfg.force_model,
+                               **{pairs_key: meter.pairs_per_sec}, **scal)
             ck_due = (cfg.checkpoint_every
                       and iteration % cfg.checkpoint_every == 0)
             if (cfg.checkpoint_every and not ck_due and probe is not None
@@ -1049,9 +1136,11 @@ def _run_simulation_once(cfg: SimConfig, dev: torch.device, *, quiet: bool,
                 compact_due = shrink_due(alive_now, state.capacity)
             if not (compact_due and iteration < cfg.total_iterations):
                 continue
-            t0 = time.perf_counter()
-            new_state = compact_state(state)
-            if new_state.capacity != state.capacity:
+            with rec.span("compaction"):
+                rec.count("compactions")
+                new_state = compact_state(state)
+                if new_state.capacity == state.capacity:
+                    continue
                 if not quiet:
                     print(f"Compacted {state.capacity} -> "
                           f"{new_state.capacity} slots")
@@ -1060,9 +1149,10 @@ def _run_simulation_once(cfg: SimConfig, dev: torch.device, *, quiet: bool,
                     # re-pick the user-auto knobs for the compacted bodies
                     reset = {kk: ("auto" if kk == "bh_near" else 0)
                              for kk, on in auto_knobs.items() if on}
-                    cfg = resolve_bh_config(
-                        dataclasses.replace(cfg, **reset), new_state,
-                        quiet=quiet)
+                    with rec.span("knobs"):
+                        cfg = resolve_bh_config(
+                            dataclasses.replace(cfg, **reset), new_state,
+                            quiet=quiet)
                     probe.prev_overflow = probe.prev_dropped = 0.0
                 if probe is not None:
                     probe.last_probe_alive = alive_now
@@ -1073,7 +1163,6 @@ def _run_simulation_once(cfg: SimConfig, dev: torch.device, *, quiet: bool,
                 state = new_state
                 meter.capacity = state.capacity
                 bootstrap = bh and state.capacity >= BOOTSTRAP_MIN_CAPACITY
-            seconds["compaction"] += time.perf_counter() - t0
     except BaseException:
         # a failed run's graphs go at once: NCCL tears its communicator
         # down (``sharding.close_group``) only once every graph holding its
@@ -1087,21 +1176,22 @@ def _run_simulation_once(cfg: SimConfig, dev: torch.device, *, quiet: bool,
             prof.stop()
             os.makedirs(profile_dir, exist_ok=True)
             prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
-        t0 = time.perf_counter()
         if writer is not None:
-            writer.close()
-        seconds["frames"] += time.perf_counter() - t0
+            with rec.span("frames"):
+                writer.close()
         logger.close()
 
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     if isinstance(runner, _GraphWindows):
-        seconds["capture"] += runner.capture_seconds
-    seconds["windows"] -= seconds["capture"]   # captures ran inside windows
+        # the last runner's graphs go inside the run, not when the caller
+        # lets the runner go (its pools stay cached for the next run)
+        with rec.span("graph_free"):
+            runner.free_graphs()
     wall = time.perf_counter() - t_start
     if not quiet:
         print(f"Time taken: {wall:.4f}")  # the reference's final line
     return RunResult(state=whole(), steps_per_sec=meter.steps_per_sec,
                      pairs_per_sec=meter.pairs_per_sec, wall_seconds=wall,
-                     frames_written=frames, windows=windows, seconds=seconds,
-                     capacities=capacities, shards=cfg.shards)
+                     frames_written=frames, capacities=capacities,
+                     shards=cfg.shards)
