@@ -1197,11 +1197,23 @@ def report_device(name, n, fn, tags, event_ms, bound, reps=20):
     return dms
 
 
-def report_split_call(name, n, ms, splits, launches, bound):
+def cold_share(fn):
+    """One call of ``fn``'s B1 warp sub-tiles that took the kernel's cold
+    path (the mode bookkeeping), of those it walked, as text."""
+    from nbodyax_torch.physics.kernels import cold_counts, reset_cold_counts
+    dev = torch.device("cuda", torch.cuda.current_device())
+    reset_cold_counts(dev)
+    fn()
+    cold, walked = cold_counts(dev)
+    return (f"cold path {cold} of {walked} warp sub-tiles "
+            f"({100 * cold / max(walked, 1):.4f}%)")
+
+
+def report_split_call(name, n, ms, splits, launches, bound, fn=None):
     print(f"{name} N={n}: {ms:.4f} ms, splits {splits}, {launches}, "
           f"{n * n / (ms / 1e3):.6g} pairs/s, bound "
           f"{bound[0]:.4f} ms ({bound[1]}), {100 * bound[0] / ms:.1f}% of "
-          f"the bound")
+          f"the bound" + (f", {cold_share(fn)}" if fn else ""))
 
 
 def phase_timing(dev, default_scene, default_cfg):
@@ -1231,7 +1243,7 @@ def phase_timing(dev, default_scene, default_cfg):
     ms = float(np.mean(times["kernel"]))
     bound = b1_bound(n)
     report_split_call("B1", n, ms, forward_splits(n, n, "reference", dev),
-                      cuda_launches(fns["kernel"]), bound)
+                      cuda_launches(fns["kernel"]), bound, fns["kernel"])
     print(f"B1 N={n}: {clocks_under(fns['kernel'], ms=ms)}")
     dms = report_device("B1", n, fns["kernel"], B1_TAGS, ms, bound)
     big = scene_features(dev, 131072)
@@ -1241,7 +1253,7 @@ def phase_timing(dev, default_scene, default_cfg):
         return tile_accumulators_raw(big, big, 0, 0, **kw)
     report_split_call("B1 alone", nb, time_ms(call, reps=5),
                       forward_splits(nb, nb, "reference", dev),
-                      cuda_launches(call), b1_bound(nb))
+                      cuda_launches(call), b1_bound(nb), call)
     p = PhysicsParams.from_config(default_cfg)
     step = make_step(p, accum_fn=build_accum_fn("pallas", p, dev))
     state = init_scene(default_cfg, device=dev)
@@ -2310,7 +2322,8 @@ def phase_timing_3d(dev, scene2d, scene3d, cfg3):
         flops = B1_FLOPS_PER_PAIR_3D if dim == 3 else B1_FLOPS_PER_PAIR
         report_split_call(f"B1 alone {label}", nb, ms,
                           forward_splits(nb, nb, "reference", dev, dim=dim),
-                          "1 call", bound_ms(nb * nb * flops, 3 * nb * 32))
+                          "1 call", bound_ms(nb * nb * flops, 3 * nb * 32),
+                          call)
     print(f"B1 N={nb}: pairs/s 3-D {pps['3-D']:.6g}, 2-D {pps['2-D']:.6g}, "
           f"ratio_3d_over_2d {pps['3-D'] / pps['2-D']:.4f}")
     del b2, b3

@@ -67,8 +67,25 @@
 // - The dimension is a template parameter: the 2-D instantiation is the
 //   code and the results of the 2-D-only kernel, and a 3-D row adds z, vz,
 //   a z force sum and its compensation, and a third mode channel.
+// - Overlapping pairs are rare (about 5e-8 of the pairs of a uniform
+//   million), and everything that depends on them is split off the hot
+//   loop: the force's overlap rule (the pair left out, or elastic mode's
+//   coincident one) and the mode's bookkeeping (the self pair by id, gains
+//   and deaths, the best candidate, the impulse). The hot loop sums every
+//   pair's force term and ORs the overlap tests of a thread's rows into one
+//   flag; after each kSub sub-tile the warp votes on the flags
+//   (__any_sync), and where any is set the cold path finds the row groups
+//   (row k of every lane) that overlapped and re-walks the sub-tile's
+//   partners for each of them in the same order, redoing its sub-sum with
+//   the overlap rule, and the bookkeeping. The hot loop carries no ids, no
+//   select, no mode channel, no velocity load and no division, and a row's
+//   mass and velocity stay out of registers (the cold path reads them from
+//   the row again). The self pairs on a warp's diagonal enter the cold path
+//   in every call; kNone keeps its select in the hot loop and has no cold
+//   path. `cold`, when not null, counts the warp sub-tiles that entered it
+//   and those walked.
 //
-// What is left is instruction throughput: about 20 FP32 and SFU
+// What is left is instruction throughput: about 15 FP32, SFU and compare
 // instructions a pair in 2-D, most of them single adds and multiplies that
 // must not fuse (the rounding rules below), so the 67 TFLOP/s FP32 peak,
 // which counts an FMA as two flops, is out of reach by about half.
@@ -101,18 +118,53 @@ constexpr int kRowsOf = DIM == 3 ? 3 : 4;
 template <int DIM>
 constexpr int kBlockRowsOf = kThreads * kRowsOf<DIM>;
 
+// One pair's geometry: the offset, the squared distance summed left to right
+// as the oracle sums it, and the rounding-exact overlap test. The hot and the
+// cold path both take it from here, so the cold path re-derives the hot
+// path's values bit for bit.
+struct Geometry {
+  float dx, dy, dz, d2;
+  bool overlap;
+};
+
+template <int DIM>
+__device__ __forceinline__ Geometry geometry(float px, float py, float pz,
+                                             float rj, float xi, float yi,
+                                             float zi, float ri) {
+  Geometry g;
+  g.dx = __fsub_rn(px, xi);
+  g.dy = __fsub_rn(py, yi);
+  g.d2 = __fadd_rn(__fmul_rn(g.dx, g.dx), __fmul_rn(g.dy, g.dy));
+  g.dz = 0.f;
+  if constexpr (DIM == 3) {
+    g.dz = __fsub_rn(pz, zi);
+    g.d2 = __fadd_rn(g.d2, __fmul_rn(g.dz, g.dz));
+  }
+  const float rsum = __fadd_rn(ri, rj);
+  // overlap includes the self pair (d2 = 0); for the force that is exactly
+  // the set of pairs to leave out
+  g.overlap = g.d2 <= __fmul_rn(rsum, rsum);
+  return g;
+}
+
+// inv^3 as (inv * inv) * inv, the order both paths must share
+__device__ __forceinline__ float cube(float inv) { return inv * inv * inv; }
+
 template <int MODE, int DIM>
 __global__ void __launch_bounds__(kThreads, 4)
 pair_kernel(const float* __restrict__ fi, int ni,
             const float* __restrict__ fj, int nj,
             int i_off, int j_off, float eps2, float growth, int chunk,
-            float* __restrict__ out, int* __restrict__ parent) {
+            float* __restrict__ out, int* __restrict__ parent,
+            unsigned long long* __restrict__ cold) {
   constexpr int kRows = kRowsOf<DIM>;
   constexpr int kBlockRows = kBlockRowsOf<DIM>;
+  constexpr int kWarps = kThreads / 32;
   using Vel = std::conditional_t<DIM == 3, float4, float2>;
   __shared__ float4 sp[kTile];            // 2-D: x, y, m, r; 3-D: x, y, z, m
   __shared__ float sr[DIM == 3 ? kTile : 1];              // 3-D: r
   __shared__ Vel sv[MODE == kElastic ? kTile : 1];        // velocity
+  __shared__ unsigned int warp_cold[kWarps];
 
   // split blockIdx.y writes its own slice of the partial buffer
   out += static_cast<long long>(blockIdx.y) * ni * kCh;
@@ -121,8 +173,7 @@ pair_kernel(const float* __restrict__ fi, int ni,
   }
 
   const int row0 = blockIdx.x * kBlockRows + threadIdx.x;
-  float xi[kRows], yi[kRows], zi[kRows], vxi[kRows], vyi[kRows], vzi[kRows];
-  float mi[kRows], ri[kRows];
+  float xi[kRows], yi[kRows], zi[kRows], ri[kRows];
   int gi[kRows];
   float fx[kRows], fy[kRows], fz[kRows];      // force
   float cx[kRows], cy[kRows], cz[kRows];      // and its compensation
@@ -136,12 +187,10 @@ pair_kernel(const float* __restrict__ fi, int ni,
     if (row < ni) load_row(fi + static_cast<long long>(row) * kFeats, a, b);
     if constexpr (DIM == 3) {
       xi[k] = a.x; yi[k] = a.y; zi[k] = a.z;
-      vxi[k] = a.w; vyi[k] = b.x; vzi[k] = b.y;
-      mi[k] = b.z; ri[k] = b.w;
+      ri[k] = b.w;
     } else {
       xi[k] = a.x; yi[k] = a.y; zi[k] = 0.f;
-      vxi[k] = a.z; vyi[k] = a.w; vzi[k] = 0.f;
-      mi[k] = b.x; ri[k] = b.y;
+      ri[k] = b.y;
     }
     gi[k] = i_off + row;
     fx[k] = fy[k] = fz[k] = cx[k] = cy[k] = cz[k] = 0.f;
@@ -150,6 +199,7 @@ pair_kernel(const float* __restrict__ fi, int ni,
     best_j[k] = INT_MAX;
   }
 
+  unsigned int entered = 0;   // this warp's sub-tiles that took the cold path
   const int jb = blockIdx.y * chunk;
   const int je = min(nj, jb + chunk);
   for (int base = jb; base < je; base += kTile) {
@@ -174,6 +224,11 @@ pair_kernel(const float* __restrict__ fi, int ni,
       float sx[kRows], sy[kRows], sz[kRows];    // this sub-tile's force
 #pragma unroll
       for (int k = 0; k < kRows; ++k) sx[k] = sy[k] = sz[k] = 0.f;
+      bool hit = false;       // a row of this thread overlaps a partner here
+      // Hot path: every pair's force term and the overlap flag. The sub-sum
+      // of a row that overlaps a partner here holds that pair's term, which
+      // the force rule leaves out (in elastic mode, a coincident pair's);
+      // the cold path redoes it.
 #pragma unroll 2
       for (int t = t0; t < t1; ++t) {
         const float4 p = sp[t];
@@ -183,62 +238,121 @@ pair_kernel(const float* __restrict__ fi, int ni,
         } else {
           mj = p.z; rj = p.w;
         }
-        const int gj = j_off + base + t;
 #pragma unroll
         for (int k = 0; k < kRows; ++k) {
-          const float dx = __fsub_rn(p.x, xi[k]);
-          const float dy = __fsub_rn(p.y, yi[k]);
-          float d2 = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
-          float dz = 0.f;
-          if constexpr (DIM == 3) {
-            dz = __fsub_rn(pz, zi[k]);
-            d2 = __fadd_rn(d2, __fmul_rn(dz, dz));
-          }
-          const float rsum = __fadd_rn(ri[k], rj);
-          // overlap includes the self pair (d2 = 0); for the force that is
-          // exactly the set of pairs to leave out
-          const bool overlap = d2 <= __fmul_rn(rsum, rsum);
-          const float inv = rsqrt_sfu(d2 + eps2);
-          const float wm = mj * (inv * inv * inv);
-          float w;
-          if constexpr (MODE == kElastic) {
-            w = (eps2 > 0.f || d2 > 0.f) ? wm : 0.f;
+          const Geometry g =
+              geometry<DIM>(p.x, p.y, pz, rj, xi[k], yi[k], zi[k], ri[k]);
+          const float wm = mj * cube(rsqrt_sfu(g.d2 + eps2));
+          if constexpr (MODE == kNone) {
+            const float w = g.overlap ? 0.f : wm;
+            sx[k] += w * g.dx;
+            sy[k] += w * g.dy;
+            if constexpr (DIM == 3) sz[k] += w * g.dz;
           } else {
-            w = overlap ? 0.f : wm;
+            sx[k] += wm * g.dx;
+            sy[k] += wm * g.dy;
+            if constexpr (DIM == 3) sz[k] += wm * g.dz;
+            hit |= g.overlap;
           }
-          sx[k] += w * dx;
-          sy[k] += w * dy;
-          if constexpr (DIM == 3) sz[k] += w * dz;
-          if constexpr (MODE == kReference) {
-            if (overlap && gj != gi[k]) {
-              if (mi[k] >= mj) {
-                m0[k] += mj;
-                m1[k] += __fmul_rn(rj, growth);
+        }
+      }
+      if constexpr (MODE != kNone) {
+        if (__any_sync(0xffffffffu, hit)) {
+          // Cold path, warp-uniform. First the row groups k (row k of every
+          // lane) in which a pair of this sub-tile overlaps; then, for each,
+          // the sub-sum again with the force rule, and the mode's
+          // bookkeeping, over the same partners in the same order. A row
+          // without an overlap gets its hot sub-sum again, and a pair that
+          // does not overlap adds nothing to a mode channel, so every
+          // channel is the full walk's, bit for bit.
+          ++entered;
+          bool row_hit[kRows];
+#pragma unroll
+          for (int k = 0; k < kRows; ++k) row_hit[k] = false;
+          for (int t = t0; t < t1; ++t) {
+            const float4 p = sp[t];
+            const float pz = DIM == 3 ? p.z : 0.f;
+            const float rj = DIM == 3 ? sr[t] : p.w;
+#pragma unroll
+            for (int k = 0; k < kRows; ++k) {
+              row_hit[k] |= geometry<DIM>(p.x, p.y, pz, rj, xi[k], yi[k],
+                                          zi[k], ri[k]).overlap;
+            }
+          }
+          unsigned int mine = 0;
+#pragma unroll
+          for (int k = 0; k < kRows; ++k) mine |= row_hit[k] ? 1u << k : 0u;
+          const unsigned int rows = __reduce_or_sync(0xffffffffu, mine);
+#pragma unroll
+          for (int k = 0; k < kRows; ++k) {
+            if ((rows & (1u << k)) == 0) continue;
+            // the row's mass and velocity, read again here: only this path
+            // needs them, and in registers they would crowd the hot loop's
+            const int row = row0 + k * kThreads;
+            float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
+            if (row < ni) {
+              load_row(fi + static_cast<long long>(row) * kFeats, a, b);
+            }
+            const float mi = DIM == 3 ? b.z : b.x;
+            const float vxi = DIM == 3 ? a.w : a.z;
+            const float vyi = DIM == 3 ? b.x : a.w;
+            const float vzi = DIM == 3 ? b.y : 0.f;
+            sx[k] = sy[k] = sz[k] = 0.f;
+            for (int t = t0; t < t1; ++t) {
+              const float4 p = sp[t];
+              float pz = 0.f, mj, rj;
+              if constexpr (DIM == 3) {
+                pz = p.z; mj = p.w; rj = sr[t];
               } else {
-                m2[k] += 1.f;
+                mj = p.z; rj = p.w;
               }
-            }
-          } else if constexpr (MODE == kMomentum) {
-            // beats excludes the self pair: equal mass and equal id
-            const bool beats = mj > mi[k] || (mj == mi[k] && gj < gi[k]);
-            if (overlap && beats &&
-                (mj > best[k] || (mj == best[k] && gj < best_j[k]))) {
-              best[k] = mj;
-              best_j[k] = gj;
-            }
-          } else if constexpr (MODE == kElastic) {
-            const Vel v = sv[t];
-            float vdotp = __fadd_rn(__fmul_rn(v.x - vxi[k], dx),
-                                    __fmul_rn(v.y - vyi[k], dy));
-            if constexpr (DIM == 3) {
-              vdotp = __fadd_rn(vdotp, __fmul_rn(v.z - vzi[k], dz));
-            }
-            // vdotp < 0 excludes the self pair and coincident bodies
-            if (overlap && vdotp < 0.f) {
-              const float coef = vdotp * mj / ((mi[k] + mj) * d2);
-              m0[k] += coef * dx;
-              m1[k] += coef * dy;
-              if constexpr (DIM == 3) m2[k] += coef * dz;
+              const Geometry g =
+                  geometry<DIM>(p.x, p.y, pz, rj, xi[k], yi[k], zi[k], ri[k]);
+              const float wm = mj * cube(rsqrt_sfu(g.d2 + eps2));
+              float w;
+              if constexpr (MODE == kElastic) {
+                w = (eps2 > 0.f || g.d2 > 0.f) ? wm : 0.f;
+              } else {
+                w = g.overlap ? 0.f : wm;
+              }
+              sx[k] += w * g.dx;
+              sy[k] += w * g.dy;
+              if constexpr (DIM == 3) sz[k] += w * g.dz;
+              if (!g.overlap) continue;
+              const int gj = j_off + base + t;
+              if constexpr (MODE == kReference) {
+                if (gj != gi[k]) {
+                  if (mi >= mj) {
+                    m0[k] += mj;
+                    m1[k] += __fmul_rn(rj, growth);
+                  } else {
+                    m2[k] += 1.f;
+                  }
+                }
+              } else if constexpr (MODE == kMomentum) {
+                // beats excludes the self pair: equal mass and equal id
+                const bool beats =
+                    mj > mi || (mj == mi && gj < gi[k]);
+                if (beats &&
+                    (mj > best[k] || (mj == best[k] && gj < best_j[k]))) {
+                  best[k] = mj;
+                  best_j[k] = gj;
+                }
+              } else {
+                const Vel v = sv[t];
+                float vdotp = __fadd_rn(__fmul_rn(v.x - vxi, g.dx),
+                                        __fmul_rn(v.y - vyi, g.dy));
+                if constexpr (DIM == 3) {
+                  vdotp = __fadd_rn(vdotp, __fmul_rn(v.z - vzi, g.dz));
+                }
+                // vdotp < 0 excludes the self pair and coincident bodies
+                if (vdotp < 0.f) {
+                  const float coef = vdotp * mj / ((mi + mj) * g.d2);
+                  m0[k] += coef * g.dx;
+                  m1[k] += coef * g.dy;
+                  if constexpr (DIM == 3) m2[k] += coef * g.dz;
+                }
+              }
             }
           }
         }
@@ -266,6 +380,24 @@ pair_kernel(const float* __restrict__ fi, int ni,
                 make_float4(m2[k], 0.f, best[k], 0.f));
     }
     if constexpr (MODE == kMomentum) parent[row] = best_j[k];
+  }
+
+  // The cold-path counter: the block's warp sub-tiles that entered it, and
+  // those it walked. Integer atomics, one pair a block, so the sums repeat
+  // whatever the blocks' order.
+  if (cold != nullptr) {
+    if ((threadIdx.x & 31) == 0) warp_cold[threadIdx.x >> 5] = entered;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      unsigned long long e = 0;
+      for (int w = 0; w < kWarps; ++w) e += warp_cold[w];
+      const unsigned long long walked =
+          je > jb ? static_cast<unsigned long long>(je - jb + kSub - 1) /
+                        kSub * kWarps
+                  : 0ull;
+      atomicAdd(cold, e);
+      atomicAdd(cold + 1, walked);
+    }
   }
 }
 
@@ -310,33 +442,34 @@ pair_combine(const float* __restrict__ part, const int* __restrict__ ppart,
 template <int MODE, int DIM>
 void launch_pass(const float* fi, int ni, const float* fj, int nj, int i_off,
                  int j_off, float eps2, float growth, int splits, float* out,
-                 int* parent, cudaStream_t stream) {
+                 int* parent, unsigned long long* cold, cudaStream_t stream) {
   const dim3 grid((ni + kBlockRowsOf<DIM> - 1) / kBlockRowsOf<DIM>, splits);
   pair_kernel<MODE, DIM><<<grid, kThreads, 0, stream>>>(
       fi, ni, fj, nj, i_off, j_off, eps2, growth, split_chunk(nj, splits),
-      out, parent);
+      out, parent, cold);
 }
 
 template <int DIM>
 void launch_dim(int mode, const float* fi, int ni, const float* fj, int nj,
                 int i_off, int j_off, float eps2, float growth, int splits,
-                float* out, int* parent, cudaStream_t s) {
+                float* out, int* parent, unsigned long long* cold,
+                cudaStream_t s) {
   switch (mode) {
     case kReference:
       launch_pass<kReference, DIM>(fi, ni, fj, nj, i_off, j_off, eps2,
-                                   growth, splits, out, parent, s);
+                                   growth, splits, out, parent, cold, s);
       break;
     case kMomentum:
       launch_pass<kMomentum, DIM>(fi, ni, fj, nj, i_off, j_off, eps2,
-                                  growth, splits, out, parent, s);
+                                  growth, splits, out, parent, cold, s);
       break;
     case kElastic:
       launch_pass<kElastic, DIM>(fi, ni, fj, nj, i_off, j_off, eps2,
-                                 growth, splits, out, parent, s);
+                                 growth, splits, out, parent, cold, s);
       break;
     default:
       launch_pass<kNone, DIM>(fi, ni, fj, nj, i_off, j_off, eps2, growth,
-                              splits, out, parent, s);
+                              splits, out, parent, cold, s);
       break;
   }
 }
@@ -379,13 +512,16 @@ extern "C" int nbodyax_pair_launch_shape(int mode, int dim, int* blocks,
 // `splits` >= 1 splits the partners across blocks; with more than one,
 // `part` (f32[splits, ni, 8]) and, in momentum mode, `ppart`
 // (i32[splits, ni]) are scratch the caller allocates, and a second launch
-// combines them into `out` / `parent`. Returns cudaGetLastError() after the
-// launches (0 on success); an unknown mode or dimension or a split count
-// below 1 returns cudaErrorInvalidValue.
+// combines them into `out` / `parent`. `cold` (u64[2], or null for no
+// count) gains the pass's warp sub-tiles that took the cold path and those
+// it walked. Returns cudaGetLastError() after the launches (0 on success);
+// an unknown mode or dimension or a split count below 1 returns
+// cudaErrorInvalidValue.
 extern "C" int nbodyax_pair_accumulators(
     const float* fi, int ni, const float* fj, int nj, int i_off, int j_off,
     int mode, int dim, float eps2, float growth, int splits, float* part,
-    int* ppart, float* out, int* parent, void* stream) {
+    int* ppart, float* out, int* parent, unsigned long long* cold,
+    void* stream) {
   if (splits < 1 || mode < kReference || mode > kNone ||
       (dim != 2 && dim != 3)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -396,10 +532,10 @@ extern "C" int nbodyax_pair_accumulators(
   int* pdst = mode != kMomentum ? nullptr : splits == 1 ? parent : ppart;
   if (dim == 3) {
     launch_dim<3>(mode, fi, ni, fj, nj, i_off, j_off, eps2, growth, splits,
-                  dst, pdst, s);
+                  dst, pdst, cold, s);
   } else {
     launch_dim<2>(mode, fi, ni, fj, nj, i_off, j_off, eps2, growth, splits,
-                  dst, pdst, s);
+                  dst, pdst, cold, s);
   }
   if (splits > 1) {
     pair_combine<<<(ni + kThreads - 1) / kThreads, kThreads, 0, s>>>(

@@ -43,8 +43,11 @@ parts are spans (``run``, ``scene``, ``knobs``, ``runner``, ``window`` with
 ``capture`` inside it, ``frames``, ``probe``, ``log``, ``checkpoint``,
 ``compaction``, ``graph_free``), whose self seconds become
 ``RunResult.seconds``, and its counters (windows, replays, captures,
-probes, adapts, ...) ``RunResult.counts``. Under a ``torch.profiler`` (the
-CLI's ``--profile``) each span is also a host event ``nbodyax.<span>``.
+probes, adapts, ...) ``RunResult.counts``, with the pair kernel's
+cold-path counter read once at the end (``b1_cold_subtiles`` of
+``b1_subtiles``; ``physics.kernels.cold_counts``). Under a
+``torch.profiler`` (the CLI's ``--profile``) each span is also a host
+event ``nbodyax.<span>``.
 
 **Checkpoints** (``checkpointEvery``; ``io/checkpoint.py``'s files, which
 both packages read) carry the resolved bh knobs (``_bh_ck_extra``), and a
@@ -147,6 +150,7 @@ from nbodyax_torch.metrics import (JsonlLogger, StepMeter, conservation_vec,
                                    potential_energy, scalars_from_vec)
 from nbodyax_torch.physics import graph_if
 from nbodyax_torch.physics._build import KernelCompileError
+from nbodyax_torch.physics.kernels import cold_counts, reset_cold_counts
 from nbodyax_torch.physics.step import PhysicsParams, make_step
 from nbodyax_torch.render import FrameWriteError, FrameWriter, render_state
 from nbodyax_torch.scenes import init_scene
@@ -182,7 +186,9 @@ class RunResult:
     # (the gather and its decisions), graph_free (graphs and pools let go)
     seconds: dict = dataclasses.field(default_factory=dict)
     # the run's counters (``tracing``): windows, one_step_windows, replays,
-    # captures, graphs_freed, probes, adapts, compactions, checkpoints
+    # captures, graphs_freed, probes, adapts, compactions, checkpoints; and
+    # the pair kernel's warp sub-tiles that took its cold path
+    # (b1_cold_subtiles) of those it walked (b1_subtiles), 0 off a card
     counts: dict = dataclasses.field(default_factory=dict)
     # capacity after each compaction that changed it: [(step, capacity)]
     capacities: list = dataclasses.field(default_factory=list)
@@ -906,7 +912,7 @@ _SECONDS_KEYS = ("run", "scene", "knobs", "runner", "windows", "capture",
                  "graph_free")
 _COUNT_KEYS = ("windows", "one_step_windows", "replays", "captures",
                "graphs_freed", "probes", "adapts", "compactions",
-               "checkpoints")
+               "checkpoints", "b1_cold_subtiles", "b1_subtiles")
 
 
 def _run_simulation_once(cfg: SimConfig, dev: torch.device, *, quiet: bool,
@@ -944,6 +950,7 @@ def _attempt(rec: Recorder, cfg: SimConfig, dev: torch.device, *,
         from nbodyax_torch.sharding import make_group, pad_to_shards
         group = group or make_group(cfg.shards, dev)
         dev = group.device
+    reset_cold_counts(dev)
     # rank 0 alone prints, logs, profiles and writes frames and checkpoints
     root = group is None or group.rank == 0
     quiet = quiet or not root
@@ -1183,6 +1190,9 @@ def _attempt(rec: Recorder, cfg: SimConfig, dev: torch.device, *,
 
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+    cold, walked = cold_counts(dev)
+    rec.count("b1_cold_subtiles", cold)
+    rec.count("b1_subtiles", walked)
     if isinstance(runner, _GraphWindows):
         # the last runner's graphs go inside the run, not when the caller
         # lets the runner go (its pools stay cached for the next run)

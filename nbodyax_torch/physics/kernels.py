@@ -30,6 +30,13 @@ for the other kernels' counts. The kernel splits the partners across
 blocks when the rows alone would not fill the card (``choose_splits``); a
 call is then two CUDA launches, the pass and the combine of its partials.
 
+The kernel's mode bookkeeping runs only in sub-tiles where some pair
+overlaps (its cold path). Each card keeps one counter of how often that
+happens, at a fixed address so that graph replays add to it too:
+``cold_counts`` reads it, ``reset_cold_counts`` zeroes it, and
+``driver.run_simulation`` reports it as ``RunResult.counts``'s
+``b1_cold_subtiles`` and ``b1_subtiles``.
+
 Reverse mode: ``tile_accumulators_raw`` is a ``torch.autograd.Function``
 (the counterpart of the ``jax.custom_vjp`` of ``nbodyax``'s kernel). Its
 backward is the analytic VJP of ``physics/kernels_bwd.py``: the backward
@@ -53,7 +60,8 @@ from nbodyax_torch.physics.pairwise import PairAccumulators, squared_distance
 __all__ = ["body_features", "tile_accumulators_raw",
            "tile_accumulators_raw_reference", "decode_raw",
            "pair_accumulators_kernel", "choose_splits", "forward_splits",
-           "NUM_FEATS", "NUM_CH", "MODES"]
+           "cold_counts", "reset_cold_counts", "NUM_FEATS", "NUM_CH",
+           "MODES"]
 
 NUM_FEATS = 8
 NUM_CH = 8
@@ -217,6 +225,45 @@ def forward_splits(ni: int, nj: int, mode: str, dev, dim: int = 2) -> int:
     return choose_splits(-(-ni // rows), nj, slots)
 
 
+# B1's cold-path counter on each card, by device index: i64[2], the warp
+# sub-tiles that took the cold path and the warp sub-tiles walked
+_COLD: dict = {}
+
+
+def _cold_buffer(dev: torch.device):
+    """The card's counter, made at its first launch outside a capture (made
+    inside one, it would live in the graph's pool). None while a capture
+    runs before it exists: that launch counts nothing."""
+    index = _index(dev)
+    buf = _COLD.get(index)
+    if buf is None and not torch.cuda.is_current_stream_capturing():
+        buf = _COLD[index] = torch.zeros(2, dtype=torch.int64, device=dev)
+    return buf
+
+
+def _cold_of(dev):
+    """Device ``dev``'s counter, None off a card or before its first
+    launch."""
+    dev = torch.device(dev)
+    return _COLD.get(_index(dev)) if dev.type == "cuda" else None
+
+
+def cold_counts(dev) -> tuple[int, int]:
+    """``(cold, walked)``: the forward kernel's warp sub-tiles that took its
+    cold path, and all it walked, on device ``dev`` since the counter was
+    made or reset; (0, 0) without one. Reads the card, so it waits for the
+    work queued before it."""
+    buf = _cold_of(dev)
+    return (0, 0) if buf is None else tuple(buf.tolist())
+
+
+def reset_cold_counts(dev) -> None:
+    """Zero device ``dev``'s cold-path counter (on its current stream)."""
+    buf = _cold_of(dev)
+    if buf is not None:
+        buf.zero_()
+
+
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """Contiguous and 16-byte aligned, as the kernels' float4 loads need."""
     t = t.contiguous()
@@ -255,7 +302,7 @@ def _launch(feats_i, feats_j, i_offset: int, j_offset: int, *, mode: str,
             fi.data_ptr(), ni, fj.data_ptr(), nj, i_offset, j_offset,
             MODES.index(mode), dim, _eps2(eps), _float32(growth_rate),
             splits, ptr(part), ptr(ppart), raw.data_ptr(), ptr(parent),
-            stream)
+            ptr(_cold_buffer(dev)), stream)
     if err != 0:
         raise RuntimeError(f"pair kernel launch failed: CUDA error {err}")
     tile_accumulators_raw.launches += 1

@@ -204,6 +204,170 @@ def test_softening(cuda):
 
 
 # ---------------------------------------------------------------------------
+# B1's cold path: the mode bookkeeping runs only for the row groups of a
+# warp that overlapped a partner of a 32-partner sub-tile. Scenes of bodies
+# far apart (radius 0.5 over a 1e6 field: no overlap but the self pairs)
+# with overlaps planted where the vote could miss them.
+# ---------------------------------------------------------------------------
+
+def far_apart(n, seed, dim=2):
+    rng = np.random.RandomState(seed)
+    pos = rng.uniform(-1e6, 1e6, (n, dim)).astype(np.float32)
+    vel = rng.uniform(-3, 3, (n, dim)).astype(np.float32)
+    mass = rng.uniform(1, 100, n).astype(np.float32)
+    radius = np.full(n, 0.5, np.float32)
+    return pos, vel, mass, radius
+
+
+def plant(arrays, i, j, dx=0.5, v=1.0):
+    """Put body i half a unit to the left of body j, both of radius 1,
+    moving at each other with speed v (apart for v < 0)."""
+    pos, vel, mass, radius = arrays
+    pos[i] = pos[j]
+    pos[i, 0] -= dx
+    vel[i] = 0.0
+    vel[j] = 0.0
+    vel[i, 0], vel[j, 0] = v, -v
+    radius[[i, j]] = 1.0
+
+
+def to_feats(arrays, dev):
+    t = [torch.from_numpy(x).to(dev) for x in arrays]
+    return kernels.body_features(*t), t[2]
+
+
+def cold_one_lane(dev, dim, mode):
+    """A ring tile (i ids 0-511 against j ids 512-4095: no self pair) with
+    one overlapping pair: one lane of one warp sees it, in one sub-tile."""
+    a = far_apart(4096, 21, dim)
+    plant(a, 37, 1512)
+    feats, mass = to_feats(a, dev)
+    return dict(fi=feats[:512], fj=feats[512:], i0=0, j0=512,
+                mass_i=mass[:512], cold=1)
+
+
+def cold_split_edges(dev, dim, mode):
+    """Overlaps with the first partner of split 1, the last partner of
+    split 1 and the last partner of a ragged last tile (nj = 16,307)."""
+    nj = BIG - 77
+    splits = kernels.forward_splits(BIG, nj, mode, dev, dim=dim)
+    assert splits > 2
+    chunk = split_chunk(nj, splits)
+    a = far_apart(BIG, 22, dim)
+    for i, j in ((3, chunk), (700, 2 * chunk - 1), (9000, nj - 1)):
+        plant(a, i, j)
+    feats, mass = to_feats(a, dev)
+    return dict(fi=feats, fj=feats[:nj], i0=0, j0=0, mass_i=mass)
+
+
+def cold_large_ids(dev, dim, mode):
+    """i ids base+256..base+767 against j ids base..base+1023: every row's
+    self pair sits 256 partners off the tile's diagonal, at ids past 2^30;
+    one planted pair shares a self pair's sub-tile, one has its own."""
+    base = (1 << 30) + 3
+    a = far_apart(2048, 23, dim)
+    plant(a, 300, 301)
+    plant(a, 600, 5)
+    feats, mass = to_feats(a, dev)
+    return dict(fi=feats[256:768], fj=feats[:1024], i0=base + 256, j0=base,
+                mass_i=mass[256:768], cold=512 // 32 + 1)
+
+
+def cold_giant_on_dead(dev, dim, mode):
+    """A giant of radius 5,000 on 300 dead slots left where they died
+    (two of them on one spot), with 5 live bodies inside it."""
+    rng = np.random.RandomState(24)
+    pos, vel, mass, radius = a = far_apart(4096, 24, dim)
+    pos[100], mass[100], radius[100] = 0.0, 1e6, 5000.0
+    inside = np.arange(200, 505)
+    pos[inside] = rng.uniform(-3000, 3000, (inside.size, dim))
+    mass[inside[:300]] = 0.0
+    pos[inside[1]] = pos[inside[0]]
+    feats, mass = to_feats(a, dev)
+    return dict(fi=feats, fj=feats, i0=0, j0=0, mass_i=mass)
+
+
+def cold_momentum_tie(dev, dim, mode):
+    """Body 40 overlapped by three equal masses that beat it, 45, 50 and
+    60, all in the sub-tile of partners 32-63: the lowest id wins."""
+    pos, vel, mass, radius = a = far_apart(1024, 25, dim)
+    for j, dx in ((45, 0.3), (50, -0.3), (60, 0.2)):
+        pos[j] = pos[40]
+        pos[j, 0] += dx
+    radius[[40, 45, 50, 60]] = 1.0
+    mass[40], mass[[45, 50, 60]] = 50.0, 500.0
+    feats, mass = to_feats(a, dev)
+    return dict(fi=feats, fj=feats, i0=0, j0=0, mass_i=mass,
+                parents={40: 45, 45: 45, 50: 45, 60: 45})
+
+
+def cold_elastic(dev, dim, mode):
+    """Overlapping pairs approaching (10, 11) and receding (20, 21): only
+    the approaching pair gains an impulse."""
+    a = far_apart(1024, 26, dim)
+    plant(a, 10, 11, v=1.0)
+    plant(a, 20, 21, v=-1.0)
+    feats, mass = to_feats(a, dev)
+    return dict(fi=feats, fj=feats, i0=0, j0=0, mass_i=mass,
+                bounced=(10, 11), still=(20, 21))
+
+
+def cold_diagonal(dev, dim, mode):
+    """No overlap but the self pairs: each 32-row group enters the cold
+    path once, in the sub-tile of its own ids."""
+    feats, mass = to_feats(far_apart(4096, 27, dim), dev)
+    return dict(fi=feats, fj=feats, i0=0, j0=0, mass_i=mass,
+                cold=4096 // 32)
+
+
+COLD_CASES = {"one_lane": cold_one_lane, "split_edges": cold_split_edges,
+              "large_ids": cold_large_ids,
+              "giant_on_dead": cold_giant_on_dead,
+              "momentum_tie": cold_momentum_tie, "elastic": cold_elastic,
+              "diagonal": cold_diagonal}
+
+
+@pytest.mark.parametrize("case,mode,dim", [
+    *((c, m, 2) for c in ("one_lane", "split_edges", "large_ids",
+                          "giant_on_dead", "diagonal") for m in MODES),
+    ("giant_on_dead", "reference", 3), ("giant_on_dead", "momentum", 3),
+    ("giant_on_dead", "elastic", 3), ("diagonal", "reference", 3),
+    ("momentum_tie", "momentum", 2), ("momentum_tie", "momentum", 3),
+    ("elastic", "elastic", 2), ("elastic", "elastic", 3)])
+def test_cold_path_cases(cuda, case, mode, dim):
+    c = COLD_CASES[case](cuda, dim, mode)
+    kw = dict(mode=mode, eps=0.0, growth_rate=0.1, dim=dim)
+    kernels.reset_cold_counts(cuda)
+    rk, pk = kernels.tile_accumulators_raw(c["fi"], c["fj"], c["i0"],
+                                           c["j0"], **kw)
+    cold, walked = kernels.cold_counts(cuda)
+    rp, pp = kernels.tile_accumulators_raw_reference(c["fi"], c["fj"],
+                                                     c["i0"], c["j0"], **kw)
+    a = kernels.decode_raw(rk, pk, c["i0"], c["mass_i"], mode, dim=dim)
+    b = kernels.decode_raw(rp, pp, c["i0"], c["mass_i"], mode, dim=dim)
+    assert_equivalent(a, b, mode)
+    ni, nj = c["fi"].shape[0], c["fj"].shape[0]
+    splits = kernels.forward_splits(ni, nj, mode, cuda, dim=dim)
+    _, rows = kernels.launch_shape("forward", mode, cuda.index, dim)
+    chunk = split_chunk(nj, splits)
+    # each split's warps walk ceil(partners / 32) sub-tiles, 4 warps a block
+    assert walked == -(-ni // rows) * 4 * sum(
+        -(-max(0, min(nj, (s + 1) * chunk) - s * chunk) // 32)
+        for s in range(splits))
+    if mode == "none":
+        assert cold == 0
+    elif "cold" in c:
+        assert cold == c["cold"]
+    else:
+        assert 0 < cold < walked
+    if "parents" in c:
+        assert {i: int(a.parent[i]) for i in c["parents"]} == c["parents"]
+    if "bounced" in c:
+        assert all(float(a.dv[i].abs().max()) > 0 for i in c["bounced"])
+        assert all(float(a.dv[i].abs().max()) == 0 for i in c["still"])
+
+
+# ---------------------------------------------------------------------------
 # The backward kernel (csrc/pair_bwd_kernel.cu)
 # ---------------------------------------------------------------------------
 

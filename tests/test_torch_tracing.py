@@ -169,6 +169,25 @@ def test_every_span_is_a_host_event_nested_as_the_driver_opens_them(
         assert res.frames_written == 6 and n["frames"] == 7
 
 
+def test_counts_carry_the_pair_kernel_cold_counter(tmp_path, monkeypatch):
+    """``b1_cold_subtiles`` and ``b1_subtiles`` are in every run's counts:
+    0 on the CPU, which runs no kernel; on a card, what the counter read
+    at the run's end, after the zeroing at its start."""
+    cfg = config(tmp_path, total_iterations=4, compact_every=0,
+                 checkpoint_every=0)
+    res = run_simulation(cfg, device="cpu", quiet=True, _eager=True)
+    assert res.counts["b1_cold_subtiles"] == res.counts["b1_subtiles"] == 0
+    calls = []
+    monkeypatch.setattr(driver, "reset_cold_counts",
+                        lambda dev: calls.append("reset"))
+    monkeypatch.setattr(driver, "cold_counts",
+                        lambda dev: calls.append("read") or (3, 1024))
+    res = run_simulation(cfg, device="cpu", quiet=True, _eager=True)
+    assert calls == ["reset", "read"]
+    assert res.counts["b1_cold_subtiles"] == 3
+    assert res.counts["b1_subtiles"] == 1024
+
+
 def test_stand_in_graphs_end_where_the_eager_windows_do(
         tmp_path, monkeypatch, stand_in_graphs):
     cfg = config(tmp_path, total_iterations=12)
