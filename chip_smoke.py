@@ -7,7 +7,7 @@ Run from the root of a checkout, on a machine with one CUDA card:
 
 Phases, each of which exits non-zero on failure:
 
-1. print the card's name and power limit; build the five CUDA sources of
+1. print the card's name and power limit; build the six CUDA sources of
    ``nbodyax_torch/csrc`` (one ``nvcc`` a source, in parallel; the fifth,
    ``graph_cond.cu``, sets the bh step's CUDA-graph IF nodes) and print the
    build time and ptxas's registers and spills of every kernel;
@@ -143,6 +143,13 @@ Phases, each of which exits non-zero on failure:
     device time; one 3-D bh step (CUDA-event span, host wall) and the
     graph windows' host wall a step, its profiler breakdown, device idle
     share and peak memory;
+27b. the bh annulus kernel against the plain ``fmm._annulus_force_cells``
+    at the 1M 2-D and 3-D scenes' auto knobs, from the slot grid and from
+    the sorted pack: ids equal, the force at every live slot within 1e-5
+    of the largest, two launches bitwise equal; timed in turns plain,
+    kernel, kernel, plain, with its own device time and its bound from
+    the live slots and shell cells of mass (phases 14 and 25 count its
+    launches, once a step by replays);
 28. compaction through graph windows: the default scene with
     ``compactEvery=50 checkpointEvery=100 autoResume=true`` for 400 steps,
     the capacities it shrinks through, graph against eager bitwise (state,
@@ -354,6 +361,11 @@ B1_TAGS = ("pair_kernel<", "pair_combine")
 B2_TAGS = ("pair_bwd_kernel", "pair_bwd_combine")
 B3_TAGS = ("near_kernel",)
 PACK_TAGS = ("slot_pack",)
+ANNULUS_TAGS = ("annulus_kernel",)
+# the annulus: float32 ops of a live slot against a shell cell of mass, as
+# csrc/annulus_kernel.cu counts them (rsqrt as one, none fused)
+ANNULUS_FLOPS = {2: 43, 3: 67}
+ANNULUS_GATE = 1e-5   # of the largest force: float32 reordering alone
 
 
 def fail(msg: str) -> None:
@@ -1935,17 +1947,20 @@ def config_text(cfg):
 def phase_bh_main_path(cfg):
     """The CLI on the N = 1M bh configuration (2-D, or 3-D with
     ``dimensions=3``) for 20 steps through graph windows: the knobs it
-    picked, bh_overflow 0, a finite state, B3 and B5 once a step by
-    replays, the run's peak device memory. Returns (B3 launches, B5
-    launches)."""
+    picked, bh_overflow 0, a finite state, B3, B5 and the annulus kernel
+    once a step by replays, the run's peak device memory. Returns (B3
+    launches, B5 launches, annulus launches)."""
+    from nbodyax_torch.physics.annulus_kernel import annulus_cells
     from nbodyax_torch.physics.near_kernel import slots_near
     from nbodyax_torch.physics.slotpack_kernel import pack_slots
     torch.cuda.reset_peak_memory_stats()
     slots_near.launches = 0
     pack_slots.moment_launches = 0
+    annulus_cells.launches = 0
     r = cli_run([], cfg_text=config_text(cfg))
     out, rc = r["out"], r["rc"]
     b3, b5 = slots_near.launches, pack_slots.moment_launches
+    ann = annulus_cells.launches
     peak = torch.cuda.max_memory_allocated()
     check(rc == 0, f"bh cli exited {rc}")
     graph_windows_ran(r, f"bh main path {cfg.dimensions}-D")
@@ -1958,8 +1973,9 @@ def phase_bh_main_path(cfg):
         check(rec["bh_overflow"] == 0, f"bh_overflow {rec['bh_overflow']}")
         check(all(np.isfinite(v) for v in rec.values()
                   if isinstance(v, float)), f"non-finite log values: {rec}")
-    check(b3 == steps and b5 == steps,
-          f"B3 launched {b3} and B5 {b5} times in {steps} steps")
+    check(b3 == steps and b5 == steps and ann == steps,
+          f"B3 launched {b3}, B5 {b5} and the annulus {ann} times in "
+          f"{steps} steps")
     taken = [l for l in out.splitlines() if l.startswith("Time taken: ")]
     check(len(taken) == 1, "no 'Time taken:' line")
     last = logs[-1]
@@ -1968,14 +1984,14 @@ def phase_bh_main_path(cfg):
               "a 3-D bh log line without momentum_z")
     print(f"bh main path {cfg.dimensions}-D N={cfg.particle_count}: "
           f"{knobs[0]}; peak device memory {peak / 2 ** 30:.3f} GiB")
-    print(f"bh main path {cfg.dimensions}-D: {steps} steps, B3 {b3} and B5 "
-          f"{b5} launches, "
+    print(f"bh main path {cfg.dimensions}-D: {steps} steps, B3 {b3}, B5 "
+          f"{b5} and annulus {ann} launches, "
           f"bh_overflow {[r['bh_overflow'] for r in logs]}, "
           f"bh_giant_excess {last['bh_giant_excess']}, {last['alive']} "
           f"alive, {taken[0]}, {last['steps_per_sec']:.6g} steps/s "
           f"(device-timed, cumulative), last window {last['wall_ms']:.4f} "
           f"ms a step")
-    return b3, b5
+    return b3, b5, ann
 
 
 def phase_bh_direct(dims=2, mode="reference", far="direct", order=1,
@@ -2153,6 +2169,91 @@ def phase_bh_timing(dev, arrays_1m, cfg, levels=8, S=40, ci=32):
 
     profile_breakdown(lambda: step(state), 3, f"bh step {dims}-D N=1M")
     return times
+
+
+def annulus_live_pairs(packed, st, levels, dims, ci, ring=1):
+    """The annulus kernel's evaluations: each cell's live slots (its count
+    up to ci) times the shell cells of mass around it, summed."""
+    from nbodyax_torch.physics.fmm import _annulus_offsets
+    g, w = 1 << levels, ring + 1
+    live = (st[3] - st[2]).clamp(max=ci).view((g,) * dims)
+    has = (packed[:, 0] > 0).to(torch.int64).view((g,) * dims)
+    pad = torch.nn.functional.pad(has, (w, w) * dims)
+    shell = torch.zeros_like(has)
+    for off in _annulus_offsets(ring, ring + 1, dims):
+        # off[0] is x, the grid's last axis
+        shell += pad[tuple(slice(w + o, w + o + g) for o in reversed(off))]
+    return int((live * shell).sum())
+
+
+def phase_annulus(dev, arrays_1m, arrays3_1m):
+    """The bh annulus kernel against the plain ``fmm._annulus_force_cells``
+    at the 1M scenes' auto knobs (2-D: levels 8, ci 32, 16 shell cells;
+    3-D: levels 5, ci 64, 98), from the slot grid and from the sorted pack;
+    timed in turns plain, kernel, kernel, plain (CUDA events, the slot
+    grid's form, as the bh step calls it), its own device time by the
+    profiler, and its bound from the live slots and shell cells of mass.
+    Returns {dims: ((max abs, max rel) error, times)}."""
+    from nbodyax_torch.physics.annulus_kernel import annulus_cells
+    from nbodyax_torch.physics.fmm import _annulus_force_cells, _level_grids
+    from nbodyax_torch.physics.slotpack_kernel import pack_slots
+    out = {}
+    for dims, arrays, (levels, S, ci) in (
+            (2, arrays_1m, (8, 40, 32)),
+            (3, arrays3_1m, (BH3D_LEVELS, BH3D_S, BH3D_CI))):
+        (pos, _, mass, _), ext, st = bh_structure(arrays, dev, levels, False)
+        n = pos.shape[0]
+        packed = torch.stack(_level_grids(pos, mass, ext, levels,
+                                          order=2)[levels], 1)
+        fslot = pack_slots(st[4], st[2], st[3], S)
+        args = (packed, ext, levels, 1, 2, 0.0, 2, st, ci)
+        count = (st[3] - st[2]).clamp(max=ci)
+        live = (torch.arange(ci, device=dev)[None, :]
+                < count[:, None]).reshape(-1)
+        errs, first = [], None
+        for source, fs in (("slot grid", fslot), ("sorted pack", None)):
+            k, kid = annulus_cells(*args, fslot=fs)
+            p, pid = _annulus_force_cells(*args, fslot=fs)
+            first = k if first is None else first
+            check(torch.equal(kid, pid), f"annulus {dims}-D ({source}): the "
+                  f"ids differ from the plain version's")
+            check(not bool(k[~live].any()), f"annulus {dims}-D ({source}): "
+                  f"a slot past its cell's count has a force")
+            rel = float((k[live] - p[live]).abs().max()
+                        / p[live].abs().max())
+            errs.append(abs_rel_err(k[live], p[live]))
+            print(f"annulus {dims}-D vs plain N={n} ({source}, levels "
+                  f"{levels}, ci {ci}): {int(live.sum())} live slots, "
+                  f"largest error {rel:.3g} of the largest force, per "
+                  f"channel {errs[-1]}")
+            check(rel < ANNULUS_GATE, f"annulus {dims}-D ({source}) off its "
+                  f"plain version by {rel} of the largest force")
+        again, _ = annulus_cells(*args, fslot=fslot)
+        check(torch.equal(again, first), f"annulus {dims}-D: two launches "
+              f"differ")
+        kern = lambda: annulus_cells(*args, fslot=fslot)          # noqa
+        plain = lambda: _annulus_force_cells(*args, fslot=fslot)  # noqa
+        t = {"kernel": [], "plain": []}
+        for which in ("plain", "kernel", "kernel", "plain"):
+            t[which].append(time_ms(kern, reps=20) if which == "kernel"
+                            else time_ms(plain, reps=3, warm=1))
+        pairs = annulus_live_pairs(packed, st, levels, dims, ci)
+        nbytes = (int(live.sum()) * (dims + 2) * 4 + live.numel()
+                  * (dims * 4 + 8) + packed.numel() * 4 + 2 * 8
+                  * packed.shape[0])
+        times = {"ms": float(np.mean(t["kernel"])),
+                 "plain_ms": float(np.mean(t["plain"])), "library_ms": None,
+                 "bound": bound_ms(pairs * ANNULUS_FLOPS[dims], nbytes)}
+        print(f"annulus {dims}-D N={n}: kernel {t['kernel']} ms, plain "
+              f"{t['plain']} ms (CUDA events); {pairs} live slot-cell pairs "
+              f"at {ANNULUS_FLOPS[dims]} flops, bound "
+              f"{times['bound'][0]:.4f} ms ({times['bound'][1]})")
+        times["device_ms"] = report_device(
+            f"annulus ({dims}-D 1M scene)", n, kern, ANNULUS_TAGS,
+            times["ms"], times["bound"])
+        out[dims] = (tuple(max(e[i] for e in errs) for i in range(2)), times)
+        del fslot, packed, st
+    return out
 
 
 def slotpack_tail(dev, levels, S):
@@ -4803,7 +4904,7 @@ def main() -> int:
     b5_err, b4_err = phase_slotpack(dev, arrays_1m)
     b3_err = phase_near(dev, arrays_1m)
     phase_bh_vs_exact(dev)
-    b3_launches, b5_launches = phase_bh_main_path(bh_cfg)
+    b3_launches, b5_launches, ann_launches = phase_bh_main_path(bh_cfg)
     _, b4_launches, _ = phase_bh_direct()
     phase_bh_direct(far="fmm", order=2, adaptive=True)
     bh_times = phase_bh_timing(dev, arrays_1m, bh_cfg)
@@ -4828,12 +4929,14 @@ def main() -> int:
                                           BH3D_S, dims=3)
     b3_3d_err = phase_near_3d(dev, arrays3_1m)
     phase_bh_vs_exact_3d(dev)
-    b3_3d_launches, b5_3d_launches = phase_bh_main_path(bh3_cfg)
+    b3_3d_launches, b5_3d_launches, ann_3d_launches = phase_bh_main_path(
+        bh3_cfg)
     _, b4_3d_launches, _ = phase_bh_direct(dims=3)
     phase_bh_direct(dims=3, mode="elastic")
     phase_bh_direct(dims=3, mode="elastic", far="fmm", order=2)
     bh3_times = phase_bh_timing(dev, arrays3_1m, bh3_cfg, BH3D_LEVELS,
                                 BH3D_S, BH3D_CI)
+    annulus = phase_annulus(dev, arrays_1m, arrays3_1m)
     resume_ref = []
     shard = {}
 
@@ -4920,6 +5023,12 @@ def main() -> int:
         ("slot_pack_moments_kernel_3d", "slotpack_kernel.cu",
          "nbodyax/physics/slotpack_pallas.py:123", b5_3d_launches,
          b5_3d_err, bh3_times["B5"]),
+        ("annulus_kernel", "annulus_kernel.cu",
+         "none (nbodyax/physics/barneshut.py _annulus_force_cells, jnp)",
+         ann_launches, *annulus[2]),
+        ("annulus_kernel_3d", "annulus_kernel.cu",
+         "none (nbodyax/physics/barneshut.py _annulus_force_cells, jnp)",
+         ann_3d_launches, *annulus[3]),
         ("near_kernel_slice", "near_kernel.cu",
          "nbodyax/physics/near_pallas.py:116", shard["launches"],
          shard["slice"][1], shard["slice"][0]),

@@ -36,7 +36,7 @@ import torch
 
 # the kernel wrappers' launch counts, in ``graphs._launch_counters`` order
 KERNELS = ("pair_kernel", "pair_bwd_kernel", "near_kernel",
-           "slot_pack_kernel", "slot_pack_moments_kernel")
+           "slot_pack_kernel", "slot_pack_moments_kernel", "annulus_kernel")
 N_CARD, REPS_CARD = 1_048_576, 5
 N_CPU, REPS_CPU = 4096, 2
 METRIC = "pairwise_interactions_per_sec_per_chip_collisions_on_N{n}"

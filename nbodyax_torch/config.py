@@ -142,7 +142,8 @@ class SimConfig:
                                           # | direct (gathered per-cell
                                           # windows, exact target)
     bh_pallas: str = "auto"               # near-field and slot-pack
-                                          # kernels for bhNear=slots: auto
+                                          # kernels for bhNear=slots, and
+                                          # the annulus kernel: auto
                                           # (the CUDA kernels on a CUDA
                                           # device) | on (the kernels; an
                                           # error without a card) | off

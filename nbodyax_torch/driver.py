@@ -45,7 +45,9 @@ parts are spans (``run``, ``scene``, ``knobs``, ``runner``, ``window`` with
 ``RunResult.seconds``, and its counters (windows, replays, captures,
 probes, adapts, ...) ``RunResult.counts``, with the pair kernel's
 cold-path counter read once at the end (``b1_cold_subtiles`` of
-``b1_subtiles``; ``physics.kernels.cold_counts``). Under a
+``b1_subtiles``; ``physics.kernels.cold_counts``) and the bh annulus
+kernel's launches in the run (``annulus_launches``, a graph's by its
+replays, as ``graphs.add_counts`` counts them). Under a
 ``torch.profiler`` (the CLI's ``--profile``) each span is also a host
 event ``nbodyax.<span>``.
 
@@ -150,6 +152,7 @@ from nbodyax_torch.metrics import (JsonlLogger, StepMeter, conservation_vec,
                                    potential_energy, scalars_from_vec)
 from nbodyax_torch.physics import graph_if
 from nbodyax_torch.physics._build import KernelCompileError
+from nbodyax_torch.physics.annulus_kernel import annulus_cells
 from nbodyax_torch.physics.kernels import cold_counts, reset_cold_counts
 from nbodyax_torch.physics.step import PhysicsParams, make_step
 from nbodyax_torch.render import FrameWriteError, FrameWriter, render_state
@@ -188,7 +191,8 @@ class RunResult:
     # the run's counters (``tracing``): windows, one_step_windows, replays,
     # captures, graphs_freed, probes, adapts, compactions, checkpoints; and
     # the pair kernel's warp sub-tiles that took its cold path
-    # (b1_cold_subtiles) of those it walked (b1_subtiles), 0 off a card
+    # (b1_cold_subtiles) of those it walked (b1_subtiles), 0 off a card;
+    # the bh annulus kernel's launches (annulus_launches), 0 off a card
     counts: dict = dataclasses.field(default_factory=dict)
     # capacity after each compaction that changed it: [(step, capacity)]
     capacities: list = dataclasses.field(default_factory=list)
@@ -912,7 +916,8 @@ _SECONDS_KEYS = ("run", "scene", "knobs", "runner", "windows", "capture",
                  "graph_free")
 _COUNT_KEYS = ("windows", "one_step_windows", "replays", "captures",
                "graphs_freed", "probes", "adapts", "compactions",
-               "checkpoints", "b1_cold_subtiles", "b1_subtiles")
+               "checkpoints", "b1_cold_subtiles", "b1_subtiles",
+               "annulus_launches")
 
 
 def _run_simulation_once(cfg: SimConfig, dev: torch.device, *, quiet: bool,
@@ -951,6 +956,7 @@ def _attempt(rec: Recorder, cfg: SimConfig, dev: torch.device, *,
         group = group or make_group(cfg.shards, dev)
         dev = group.device
     reset_cold_counts(dev)
+    annulus_before = annulus_cells.launches
     # rank 0 alone prints, logs, profiles and writes frames and checkpoints
     root = group is None or group.rank == 0
     quiet = quiet or not root
@@ -1193,6 +1199,7 @@ def _attempt(rec: Recorder, cfg: SimConfig, dev: torch.device, *,
     cold, walked = cold_counts(dev)
     rec.count("b1_cold_subtiles", cold)
     rec.count("b1_subtiles", walked)
+    rec.count("annulus_launches", annulus_cells.launches - annulus_before)
     if isinstance(runner, _GraphWindows):
         # the last runner's graphs go inside the run, not when the caller
         # lets the runner go (its pools stay cached for the next run)

@@ -27,13 +27,14 @@ class GraphCaptureError(RuntimeError):
 
 def _launch_counters():
     """(owner, attribute) of every kernel wrapper's launch count."""
+    from nbodyax_torch.physics.annulus_kernel import annulus_cells
     from nbodyax_torch.physics.kernels import tile_accumulators_raw
     from nbodyax_torch.physics.kernels_bwd import raw_backward
     from nbodyax_torch.physics.near_kernel import slots_near
     from nbodyax_torch.physics.slotpack_kernel import pack_slots
     return ((tile_accumulators_raw, "launches"), (raw_backward, "launches"),
             (slots_near, "launches"), (pack_slots, "launches"),
-            (pack_slots, "moment_launches"))
+            (pack_slots, "moment_launches"), (annulus_cells, "launches"))
 
 
 def read_counters() -> list:

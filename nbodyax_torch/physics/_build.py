@@ -4,8 +4,9 @@
 library with a plain C interface, loaded with ``ctypes``: ``pair_kernel.cu``
 (the all-pairs forward pass), ``pair_bwd_kernel.cu`` (its analytic
 backward pass), ``near_kernel.cu`` (the bh near field),
-``slotpack_kernel.cu`` (the bh slot-grid pack and finest moments) and
-``graph_cond.cu`` (CUDA-graph IF nodes for ``graph_if``); the two
+``slotpack_kernel.cu`` (the bh slot-grid pack and finest moments),
+``graph_cond.cu`` (CUDA-graph IF nodes for ``graph_if``) and
+``annulus_kernel.cu`` (the bh far field's exact-target annulus); the two
 all-pairs sources share ``pair_common.cuh``. The libraries are built at
 first use into ``build/nbodyax_torch/`` beside the package, one ``nvcc`` a
 source, all started together, and keyed by a hash of every source, header
@@ -32,7 +33,7 @@ __all__ = ["load_library", "build_log", "cached_build", "SOURCES",
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(_PKG / "csrc" / name for name in (
     "pair_kernel.cu", "pair_bwd_kernel.cu", "near_kernel.cu",
-    "slotpack_kernel.cu", "graph_cond.cu"))
+    "slotpack_kernel.cu", "graph_cond.cu", "annulus_kernel.cu"))
 HEADERS = (_PKG / "csrc" / "pair_common.cuh",)
 BUILD_DIR = _PKG.parent / "build" / "nbodyax_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -59,7 +60,8 @@ def _nvcc() -> str:
 
 
 def _bind(fwd: ctypes.CDLL, bwd: ctypes.CDLL, near: ctypes.CDLL,
-          pack: ctypes.CDLL, cond: ctypes.CDLL) -> SimpleNamespace:
+          pack: ctypes.CDLL, cond: ctypes.CDLL,
+          annulus: ctypes.CDLL) -> SimpleNamespace:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     ll = ctypes.c_longlong
     ip = ctypes.POINTER(ctypes.c_int)
@@ -80,7 +82,10 @@ def _bind(fwd: ctypes.CDLL, bwd: ctypes.CDLL, near: ctypes.CDLL,
              [p, i, p, p, i, i, i, i, p, i, p, p, p, p]),
             (cond, "nbodyax_if_begin", [p, p, p]),
             (cond, "nbodyax_if_end", [p, zp]),
-            (cond, "nbodyax_capture_nodes", [p, zp])):
+            (cond, "nbodyax_capture_nodes", [p, zp]),
+            (annulus, "nbodyax_annulus_cells",
+             [p, p, p, i, i, p, p, i, i, i, i, i, ll, i, i, i, f, p, p,
+              p])):
         fn = getattr(lib, name)
         fn.argtypes = args
         fn.restype = ctypes.c_int

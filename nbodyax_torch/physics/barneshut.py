@@ -10,6 +10,8 @@ for the model and its documented approximations. The pieces:
 - ``slotpack_kernel``: the slot grid and the finest moments (B4, B5);
 - ``near_kernel``: the slots near field (B3);
 - ``fmm``: moment grids, the FMM, the annulus and ``bhFar=direct``;
+- ``annulus_kernel``: the annulus at the cells' slots, the CUDA kernel on a
+  card (``fmm``'s plain version on the CPU);
 - here: the knob heuristics, the per-body and per-cell near passes with
   their completion pass, the slot unsort, the giant-collision pass,
   ``bh_accumulators`` and the diagnostics the driver reads.
@@ -28,7 +30,8 @@ One tier decision a step serves every completion pass.
 ``near_kernel="auto"`` (the ``bhPallas`` knob) runs B3 and B5 (or B4)
 through their wrappers: the kernels on a CUDA tensor, their plain versions
 on a CPU tensor; ``"on"`` demands a CUDA tensor; ``"off"`` runs the plain
-torch engines on any device.
+torch engines on any device. The annulus kernel follows the same knob on
+either near engine: on a CUDA tensor unless ``"off"``.
 
 The sharded step's hooks are nbodyax's: ``bh_cellrange_accumulators(shard,
 nshards)`` evaluates one contiguous 1/nshards slice of the finest cells
@@ -51,6 +54,7 @@ from nbodyax_torch.physics.bh_grid import (_cell_sizes, _cells, _extent,
                                            _flatten_cells,
                                            _gathered_pair_accum,
                                            _partner_structure, _unpack_id)
+from nbodyax_torch.physics.annulus_kernel import annulus_cells
 from nbodyax_torch.physics.fmm import (_annulus_force_bodies,
                                        _annulus_force_cells, _cell_slice,
                                        _far_force,
@@ -570,15 +574,17 @@ def _bh_cells_eval(pos, vel, mass, radius, *, eps2, growth_rate, mode: str,
                    levels: int, ring: int, neighbor_k: int, order: int,
                    chunk: int, ci_cap: int = 0, far: str = "fmm",
                    near: str = "rows", comp_cap: int = 0,
-                   kernel: bool = False, n_giants: int = 0,
-                   shard: int = 0, nshards: int = 1) -> PairAccumulators:
+                   kernel: bool = False, annulus_kernel: bool = False,
+                   n_giants: int = 0, shard: int = 0,
+                   nshards: int = 1) -> PairAccumulators:
     """Near + far per-cell evaluation over the full body set, or with
     ``nshards`` > 1 over shard ``shard``'s contiguous 1/nshards slice of
     the finest cells and its 1/nshards of the completion list: each body's
     accumulators then come whole from the one shard that owns its cell (or
     its completion entry), and every other body keeps the identity.
     ``kernel`` routes the slots engine through B3 and B5 (B4 when no
-    moments are wanted)."""
+    moments are wanted), ``annulus_kernel`` the annulus through its
+    kernel."""
     n = pos.shape[0]
     dim = pos.shape[-1]
     alive = mass > 0
@@ -624,9 +630,10 @@ def _bh_cells_eval(pos, vel, mass, radius, *, eps2, growth_rate, mode: str,
         packed_finest = torch.stack(grids[levels], 1)
         local_tab = _fmm_local_table(pos, mass, ext, levels, ring + 1, eps2,
                                      order, grids=grids)
-        aslots, _ = _annulus_force_cells(packed_finest, ext, levels, ring,
-                                         ring + 1, eps2, 2, structure, cap,
-                                         fslot=fslot, cell_range=cell_range)
+        annulus = annulus_cells if annulus_kernel else _annulus_force_cells
+        aslots, _ = annulus(packed_finest, ext, levels, ring, ring + 1, eps2,
+                            2, structure, cap, fslot=fslot,
+                            cell_range=cell_range)
         if near == "slots":
             l2p_sl = _l2p_slots(local_tab[c0:c0 + nc],
                                 fslot[c0:c0 + nc, :cap, 0:dim], ext, levels,
@@ -710,7 +717,8 @@ def bh_accumulators(pos, vel, mass, radius, *, eps: float = 0.0,
     approximate far-field force, exact near-field force and collision
     channels, and exact any-distance collisions for the ``n_giants``
     largest-radius bodies (0 disables). ``near_kernel`` is the
-    ``bhPallas`` knob (``resolve_near_kernel``); ``shard`` and ``nshards``
+    ``bhPallas`` knob (``resolve_near_kernel``; the annulus kernel on a
+    CUDA tensor unless ``"off"``); ``shard`` and ``nshards``
     are ``bh_cellrange_accumulators``'s. Forward-only, as nbodyax's bh
     step (nbodyax/autodiff.py): under autograd it raises
     ``NotImplementedError`` (its kernels have no backward, so a gradient
@@ -736,6 +744,8 @@ def bh_accumulators(pos, vel, mass, radius, *, eps: float = 0.0,
         ring=ring, neighbor_k=neighbor_k, order=order, chunk=chunk,
         ci_cap=ci_cap, far=far, near=near, comp_cap=comp_cap,
         kernel=resolve_near_kernel(near_kernel, near, pos.device),
+        annulus_kernel=(near_kernel != "off"
+                        and torch.device(pos.device).type == "cuda"),
         n_giants=n_giants, shard=shard, nshards=nshards)
 
 

@@ -6,7 +6,10 @@ Counterpart of the far-field half of ``nbodyax/physics/barneshut.py``:
 ``_fmm_local_table``), the annulus (``_annulus_offsets``,
 ``_annulus_force_cells``, ``_annulus_force_bodies``) and ``bhFar=direct``
 (``_far_force``, ``_far_force_cells``). None of this ran in a Pallas
-kernel; it is plain torch on any device.
+kernel; it is plain torch on any device. The bh step reaches
+``_annulus_force_cells`` through ``annulus_kernel.annulus_cells`` (a CUDA
+kernel on a card, this plain version on the CPU), and directly under
+``bhPallas=off``.
 
 Precision: the M2L convolution (``conv2d``, or ``conv3d`` for an octree)
 runs in full fp32 (nbodyax asks XLA for ``Precision.HIGHEST``). cuDNN's

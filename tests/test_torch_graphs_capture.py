@@ -63,7 +63,7 @@ def test_delta_is_the_capture_s_launches_and_counts_stay(no_card):
 
     graph, out, delta = graphs.capture(body, warm_up, "a test")
     assert isinstance(graph, FakeGraph) and out == "out"
-    assert delta == [2, 1, 0, 0, 0]
+    assert delta == [2, 1, 0, 0, 0, 0]
     assert counts() == [100, 7]
     graphs.add_counts(delta)
     assert counts() == [102, 8]

@@ -1267,3 +1267,164 @@ def test_bh_accumulators_3d_kernels_match_plain_engine(cuda, mode):
         if mode == "elastic":
             assert float((a.dv - b.dv).abs().max()
                          / b.dv.abs().max().clamp(min=1e-30)) < NEAR_GATE
+
+
+# ---------------------------------------------------------------------------
+# The bh annulus kernel (csrc/annulus_kernel.cu) against the plain
+# fmm._annulus_force_cells on the card
+# ---------------------------------------------------------------------------
+
+ANNULUS_GATE = 1e-5   # of the largest force magnitude: float32 reordering
+
+
+def annulus_setup(arrays, dev, levels, S):
+    """The finest moment grid, the partner structure and the slot grid
+    (S slots a cell, B5's pack) of the numpy state ``arrays`` on ``dev``."""
+    from nbodyax_torch.physics.bh_grid import _extent, _partner_structure
+    from nbodyax_torch.physics.fmm import _level_grids
+    from nbodyax_torch.physics.slotpack_kernel import pack_slots
+    pos, vel, mass, radius = (torch.from_numpy(np.ascontiguousarray(x)).to(
+        dev) for x in arrays)
+    ext = _extent(pos, mass > 0)
+    st = _partner_structure(pos, vel, mass, radius, ext, 1 << levels, False)
+    grids = _level_grids(pos, mass, ext, levels, order=2)
+    fslot = pack_slots(st[4], st[2], st[3], S)
+    return torch.stack(grids[levels], 1), ext, st, fslot
+
+
+def annulus_check(packed, ext, levels, ring, eps2, st, ci, fslot=None,
+                  cell_range=None):
+    """The kernel against the plain version: ids equal everywhere, the
+    force at every slot below its cell's count within ANNULUS_GATE of the
+    largest, 0 past it. Returns the kernel's (force, ids)."""
+    from nbodyax_torch.physics.annulus_kernel import annulus_cells
+    from nbodyax_torch.physics.fmm import _annulus_force_cells
+    args = (packed, ext, levels, ring, ring + 1, eps2, 2, st, ci)
+    kw = dict(fslot=fslot, cell_range=cell_range)
+    before = annulus_cells.launches
+    k, kid = annulus_cells(*args, **kw)
+    assert annulus_cells.launches == before + 1
+    p, pid = _annulus_force_cells(*args, **kw)
+    assert torch.equal(kid, pid)
+    c0, nc = cell_range or (0, packed.shape[0])
+    count = (st[3] - st[2])[c0:c0 + nc].clamp(max=ci)
+    live = (torch.arange(ci, device=k.device)[None, :]
+            < count[:, None]).reshape(-1)
+    assert bool(live.any())
+    scale = float(p[live].abs().max())
+    err = float((k[live] - p[live]).abs().max()) / scale
+    assert err < ANNULUS_GATE, err
+    assert not bool(k[~live].any())
+    return k, kid
+
+
+@pytest.fixture(scope="module")
+def million_scenes():
+    """The bh cells' 1M scenes as numpy arrays: the 2-D scene of
+    examples/million_bodies.txt and its 3-D uniform cube."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from nbodyax_torch.config import SimConfig
+    from nbodyax_torch.scenes import init_scene
+    out = {}
+    for dim in (2, 3):
+        cfg = SimConfig(particle_count=1 << 20, field_width=1_000_000,
+                        field_height=1_000_000, force_model="bh",
+                        dimensions=dim)
+        state = init_scene(cfg, device="cpu")
+        out[dim] = [x.numpy().copy() for x in state[:4]]
+    return out
+
+
+# the scenes' auto knobs: levels, S, ci (chip_smoke.py phases 16 and 27)
+MILLION_KNOBS = {2: (8, 40, 32), 3: (5, 80, 64)}
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("ring", [1, 2])
+@pytest.mark.parametrize("source", ["fslot", "rows"])
+def test_annulus_kernel_on_the_million_scenes(cuda, million_scenes, dim,
+                                              ring, source):
+    from nbodyax_torch.physics.barneshut import slot_cap
+    levels, S, ci = MILLION_KNOBS[dim]
+    assert ci == slot_cap(1 << 20, (1 << levels) ** dim)
+    packed, ext, st, fslot = annulus_setup(million_scenes[dim], cuda, levels,
+                                           S)
+    annulus_check(packed, ext, levels, ring, 0.0, st, ci,
+                  fslot=fslot if source == "fslot" else None)
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("ci", [32, 64, 1024])
+@pytest.mark.parametrize("source", ["fslot", "rows"])
+def test_annulus_kernel_slot_budgets_and_crowded_cells(cuda, dim, ci,
+                                                       source):
+    """A crowded centre (a quarter of the bodies in one cell, which fills
+    1,024 slots), empty cells, boundary cells whose shells leave the grid,
+    softening, ring 1 and 2; for the slot grid, every third cell's slot 1
+    made a dead body, so dead slots sit between live ones."""
+    levels = 4 if dim == 2 else 3
+    arrays = crowded_like_bh(16384 if dim == 2 else 32768, 21, dim)
+    packed, ext, st, fslot = annulus_setup(arrays, cuda, levels, ci)
+    count = st[3] - st[2]
+    assert int(count.max()) >= 1024 and int((count == 0).sum()) > 0
+    fslot[::3, 1, dim] = 0.0
+    for ring, eps in ((1, 0.0), (2, 100.0)):
+        annulus_check(packed, ext, levels, ring, eps * eps, st, ci,
+                      fslot=fslot if source == "fslot" else None)
+
+
+def crowded_like_bh(n, seed, dim):
+    """Bodies over +-1e5 but for a band of x that leaves columns of cells
+    empty, a quarter of them inside one cell (a 60-wide patch off the
+    cells' edges), body 7 dead."""
+    rng = np.random.RandomState(seed)
+    pos = rng.uniform(-1e5, 1e5, (n, dim)).astype(np.float32)
+    pos[:, 0] = np.where(np.abs(pos[:, 0]) < 3e4, 1e5, pos[:, 0])
+    pos[: n // 4] = rng.uniform(1000, 1060, (n // 4, dim))
+    vel = np.zeros((n, dim), np.float32)
+    mass = rng.uniform(1e4, 1e17, n).astype(np.float32)
+    mass[7] = 0.0
+    return pos, vel, mass, rng.uniform(50, 200, n).astype(np.float32)
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_annulus_kernel_slices_tile_the_full_launch(cuda, dim):
+    """Eight cell ranges, as the sharded bh step takes them, make the full
+    launch bit for bit; two full launches are bitwise equal."""
+    from nbodyax_torch.physics.annulus_kernel import annulus_cells
+    levels = 4 if dim == 2 else 3
+    packed, ext, st, fslot = annulus_setup(
+        crowded_like_bh(16384, 22, dim), cuda, levels, 64)
+    args = (packed, ext, levels, 1, 2, 0.0, 2, st, 64)
+    full, ids = annulus_cells(*args, fslot=fslot)
+    again, ids2 = annulus_cells(*args, fslot=fslot)
+    assert torch.equal(full, again) and torch.equal(ids, ids2)
+    ncells = packed.shape[0]
+    parts = [annulus_check(packed, ext, levels, 1, 0.0, st, 64, fslot=fslot,
+                           cell_range=(r * ncells // 8, ncells // 8))
+             for r in range(8)]
+    assert torch.equal(torch.cat([f for f, _ in parts]), full)
+    assert torch.equal(torch.cat([i for _, i in parts]), ids)
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_bh_accumulators_take_the_annulus_kernel(cuda, dim, monkeypatch):
+    """The bh step on the card runs the annulus kernel once a call, on
+    both engines, and its far force stays within the near field's gate of
+    the step with the plain annulus."""
+    from nbodyax_torch.physics import barneshut, fmm
+    from nbodyax_torch.physics.annulus_kernel import annulus_cells
+    t, _, _ = bh_grid_inputs(16384, 9, cuda, 4, False, dim=dim)
+    for near in ("slots", "rows"):
+        kw = dict(eps=0.0, mode="reference", levels=4 if dim == 2 else 3,
+                  neighbor_k=0, near=near)
+        before = annulus_cells.launches
+        a = barneshut.bh_accumulators(*t, **kw)
+        assert annulus_cells.launches == before + 1
+        with monkeypatch.context() as m:
+            m.setattr(barneshut, "annulus_cells", fmm._annulus_force_cells)
+            b = barneshut.bh_accumulators(*t, **kw)
+        assert float((a.force - b.force).abs().max()
+                     / b.force.abs().max()) < NEAR_GATE
+        assert torch.equal(a.died, b.died)

@@ -188,6 +188,30 @@ def test_counts_carry_the_pair_kernel_cold_counter(tmp_path, monkeypatch):
     assert res.counts["b1_subtiles"] == 1024
 
 
+def test_counts_carry_the_annulus_launches(tmp_path, monkeypatch,
+                                          one_thread):
+    """``annulus_launches`` is in every run's counts: 0 on a CPU bh run,
+    whose annulus is the plain version; else the wrapper's launches during
+    the run, whatever it had counted before (here the plain annulus stands
+    in for the kernel and counts as a launch)."""
+    from nbodyax_torch.physics import annulus_kernel, barneshut
+    cfg = config(tmp_path, force_model="bh", total_iterations=4,
+                 compact_every=0, checkpoint_every=0)
+    res = run_simulation(cfg, device="cpu", quiet=True, _eager=True)
+    assert res.counts["annulus_launches"] == 0
+    calls = []
+    real = barneshut._annulus_force_cells
+
+    def counted(*args, **kw):
+        calls.append(1)
+        annulus_kernel.annulus_cells.launches += 1
+        return real(*args, **kw)
+    monkeypatch.setattr(barneshut, "_annulus_force_cells", counted)
+    monkeypatch.setattr(annulus_kernel.annulus_cells, "launches", 7)
+    res = run_simulation(cfg, device="cpu", quiet=True, _eager=True)
+    assert res.counts["annulus_launches"] == len(calls) > 0
+
+
 def test_stand_in_graphs_end_where_the_eager_windows_do(
         tmp_path, monkeypatch, stand_in_graphs):
     cfg = config(tmp_path, total_iterations=12)
